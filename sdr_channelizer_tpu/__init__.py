@@ -1,26 +1,26 @@
-"""sdr_channelizer_tpu — a TPU-native wideband channelizer + pulse-detection framework.
+"""sdr_channelizer_tpu — a wideband channelizer + pulse-detection framework.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of the
+A from-scratch JAX/XLA rebuild of the capabilities of the
 ``cwozny/sdr_channelizer`` reference (C++ bladeRF/USRP capture utilities +
 MATLAB analysis chain):
 
 * versioned ``IqPacket`` binary I/Q ingest (int8 / int12 / int16) — ``io``
 * synthetic pulse / LFM / Barker-13 signal generators — ``signal``
-* M-branch polyphase FIR filterbank + FFT channel extraction, fused into a
-  single MXU matmul Pallas kernel — ``ops``, ``dsp.channelizer``
+* M-branch polyphase FIR filterbank + FFT (or DFT-matmul) channel
+  extraction — ``ops``, ``dsp.channelizer``
 * per-channel envelope detection and PDW (pulse-descriptor-word)
   extraction, vectorized with an associative-scan hysteresis latch —
   ``dsp.pdw``
 * spectrogram/STFT rendering — ``dsp.spectrogram``
 * quadratic-fit event prediction + closed-loop dwell scheduling —
   ``dsp.events``, ``capture.tracker``
-* multi-chip sharding over a 2-D (time × channel) mesh with overlap-save
+* multi-device sharding over a 2-D (time × channel) mesh with overlap-save
   halo exchange and cross-block PDW merge — ``parallel``
 * capture emulator + auto-gain search with the reference CLI contract —
   ``capture``, ``native/``
 
 See SURVEY.md at the repo root for the structural analysis of the reference
-this framework re-implements TPU-first.
+this framework re-implements.
 """
 
 __version__ = "0.1.0"

@@ -5,7 +5,7 @@ The reference's capture tier is hardware-bound C++ (bladeRF/UHD recorders,
 gain search, the real-time ``usrp_predict_event`` tracker — SURVEY.md
 section 2 #3-#10).  Here the same control loops run against an emulated
 receiver (host-side NumPy, or the native ``sdr_record_emulator`` binary for
-file-producing captures), with the DSP on TPU; the real-hardware backends
+file-producing captures), with the DSP on the accelerator; the real-hardware backends
 (``capture.hardware``: :class:`UhdRadio`, :class:`BladeRadio`) implement
 the same :class:`~sdr_channelizer_tpu.capture.hardware.Receiver` protocol
 behind import-guarded vendor drivers.

@@ -124,9 +124,8 @@ class DeviceDwellEmitter:
     """Device-resident :class:`EmulatedRadio` twin: ``receive`` returns
     ``((xr, xi), t0)`` with the dwell synthesized ON the accelerator by one
     jitted emitter — no host synthesis and no host->device sample transfer,
-    so closed-loop drives measure the framework, not numpy (the host
-    EmulatedRadio costs ~1.8 s of synthesis per 80 ms dwell at 56 Msps,
-    TRACKER_r03.json ``gen_host``).
+    so closed-loop drives measure the framework, not numpy synthesis on
+    the host.
 
     Same signal model and scheduling semantics as :class:`EmulatedRadio`
     (pulse train + scanning-beam envelope + gain-scaled amplitude + ADC

@@ -159,38 +159,18 @@ def _bands_for(args, fs: float) -> int:
 
 def cmd_channelize(args) -> int:
     """channelizer_example.m parity: channelize and render the waterfall."""
-    import jax
     import jax.numpy as jnp
 
-    from sdr_channelizer_tpu.dsp.channelizer import (
-        Channelizer,
-        channelize,
-        channelize_planes,
-    )
+    from sdr_channelizer_tpu.dsp.channelizer import Channelizer, channelize
     from sdr_channelizer_tpu.io.convert import load_capture
 
-    try:
-        platform = jax.devices()[0].platform
-    except RuntimeError:
-        platform = "cpu"
     for path in args.files:
         iq, meta = load_capture(path)
         fs = float(meta["fs"])
         m = _bands_for(args, fs)
         chan = Channelizer.create(m, taps_per_band=args.taps_per_band)
         n = len(iq) // m * m
-        if platform != "cpu":
-            # Complex device-to-host copies are unimplemented on some TPU
-            # transports: run the complex-free planes graph and assemble
-            # the complex spectra on the host.
-            yr, yi = channelize_planes(
-                jnp.asarray(np.ascontiguousarray(np.real(iq[:n]), np.float32)),
-                jnp.asarray(np.ascontiguousarray(np.imag(iq[:n]), np.float32)),
-                chan,
-            )
-            y = np.asarray(yr) + 1j * np.asarray(yi)
-        else:
-            y = np.asarray(channelize(jnp.asarray(iq[:n]), chan))
+        y = np.asarray(channelize(jnp.asarray(iq[:n]), chan))
         if args.out or len(args.files) == 1:
             out = args.out or _out_path(path, args.out_dir, "_chan.npz")
             np.savez(out, chan_iq=y, fs=fs / m,
@@ -229,7 +209,6 @@ def cmd_channelize(args) -> int:
 
 def cmd_pdw(args) -> int:
     """create_pdws.m / create_pdws_channelized.m parity."""
-    import jax
     import jax.numpy as jnp
 
     from sdr_channelizer_tpu.config import PdwConfig
@@ -272,24 +251,8 @@ def cmd_pdw(args) -> int:
                                      counters=counters)
             ck = (os.path.join(args.checkpoint_dir, f"seg{si:03d}")
                   if args.checkpoint_dir else None)
-            # On sort-free (TPU) backends, channelized segments route
-            # through the packed fused-kernel block path: raw payload
-            # bytes to the device, per-block Pallas kernels, no complex
-            # arithmetic (some TPU transports cannot lower it).
-            from sdr_channelizer_tpu.dsp import pdw as _pdwmod
-            from sdr_channelizer_tpu.ops import medians as _medians
-
-            use_fused = (
-                chan is not None and _medians.use_sort_free()
-                and _pdwmod._pallas_stats_ok(
-                    args.block_frames + cfg.max_pulse_samples, cfg)
-            )
-            if use_fused:
-                pdws = ext.extract_segment_fused(seg, fc=hdr.frequency_hz,
-                                                 checkpoint_dir=ck)
-            else:
-                pdws = ext.extract_segment(seg, fc=hdr.frequency_hz,
-                                           checkpoint_dir=ck)
+            pdws = ext.extract_segment(seg, fc=hdr.frequency_hz,
+                                       checkpoint_dir=ck)
             all_pdws.append(pdws)
             print(f"segment {si} ({len(seg.paths)} files, "
                   f"{seg.num_samples} samples): {len(pdws['toa'])} pulses")
@@ -310,17 +273,17 @@ def cmd_pdw(args) -> int:
                                         max_pulse_samples=args.max_pulse_samples)
             if args.threshold_db is not None:
                 cfg = dataclasses.replace(cfg, snr_threshold_db=args.threshold_db)
-            # Integer-payload containers feed the packed-ingest fused
-            # kernels (on-disk bytes to the device, in-kernel dequant);
-            # float containers go as f32 planes through the same path.
+            # Integer-payload containers go to the device as the packed
+            # payload (on-disk bytes, dequantized there); float containers
+            # go as f32 planes through the same graph.
             from sdr_channelizer_tpu.io.convert import load_capture_raw
 
             raw, bw, _ = load_capture_raw(path)
             if raw is None:
                 bw = 0
             if args.shards > 1:
-                # Multi-device extraction: fused per-shard kernels over a
-                # time-sharded mesh (parallel/pipeline.py).
+                # Multi-device extraction over a time-sharded mesh
+                # (parallel/pipeline.py).
                 from sdr_channelizer_tpu.dsp.channelizer import Channelizer
                 from sdr_channelizer_tpu.parallel import make_mesh
                 from sdr_channelizer_tpu.parallel.pipeline import ShardedPipeline
@@ -343,14 +306,8 @@ def cmd_pdw(args) -> int:
                 continue
             pipe = ChannelizerPipeline.create(m, pdw_cfg=cfg)
             n = len(iq) // m * m
-            try:
-                platform = jax.devices()[0].platform
-            except RuntimeError:
-                platform = "cpu"
-            if raw is not None and platform != "cpu":
-                # The single-chip headline path (bench.py): packed ingest,
-                # fused Pallas kernels.  On CPU the interpret-mode kernels
-                # are slower than the XLA oracle path — keep extract().
+            if raw is not None:
+                # The headline path (bench.py): packed payload ingest.
                 pdws = pipe.extract_fused(raw[:n], bit_width=bw, fs=fs,
                                           fc=fc, sample_start_time=t0)
             else:
@@ -590,7 +547,7 @@ def _add_capture_args(p, with_signal=True):
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(
         prog="sdr_channelizer_tpu",
-        description="TPU-native wideband channelizer + pulse-detection framework",
+        description="Wideband polyphase channelizer + pulse-detection framework (JAX)",
     )
     sub = ap.add_subparsers(dest="command", required=True)
 
@@ -658,8 +615,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--max-pulse-samples", type=int, default=4096)
     p.add_argument("--shards", type=int, default=1,
                    help="time-shard the extraction over this many devices "
-                        "(channelized: fused per-shard kernels; wideband: "
-                        "sharded latch chaining)")
+                        "(overlap-save FIR halos, sharded latch chaining)")
     p.add_argument("--strict-halo", action="store_true",
                    help="refuse (instead of warn) when the pulse-stitching "
                         "halo does not fit the per-shard block — guarantees "
@@ -732,4 +688,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)
+    from sdr_channelizer_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     return args.fn(args)

@@ -31,8 +31,6 @@ class ChannelizerConfig:
     num_bands: int
     taps_per_band: int = 12
     stopband_atten_db: float = 80.0
-    # Frames per Pallas grid step (time-block length of the fused kernel).
-    block_frames: int = 256
 
     @property
     def num_taps(self) -> int:
@@ -68,7 +66,7 @@ class PdwConfig:
     Default thresholds: 18 dB + 3 dB hysteresis (wideband), 15 dB
     (channelized), 20 dB (event mode) — see the named constructors.
 
-    ``max_pulses`` / ``max_pulse_samples`` are TPU static-shape bounds: the
+    ``max_pulses`` / ``max_pulse_samples`` are static-shape bounds: the
     extractor emits at most ``max_pulses`` PDWs per (block, channel) and
     measures median statistics over at most ``max_pulse_samples`` samples of
     each pulse.  The reference loops have no such bound; pick bounds that
@@ -170,7 +168,7 @@ class ShardingConfig:
     """2-D (time-blocks x channels) mesh layout for long captures.
 
     The reference is single-process/single-device (SURVEY.md section 5.7-5.8);
-    this is the TPU-native scale-out design: the sample axis is sharded into
+    this is the multi-device scale-out design: the sample axis is sharded into
     time blocks with overlap-save FIR halos exchanged between neighbors, the
     channel axis is sharded for PDW extraction, and boundary-straddling
     pulses are deduplicated by emitting each pulse from the shard that owns

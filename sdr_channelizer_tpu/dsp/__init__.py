@@ -6,7 +6,6 @@ from sdr_channelizer_tpu.dsp.channelizer import (  # noqa: F401
     channelize,
     center_frequencies,
     dft_matrix,
-    resolve_method,
 )
 from sdr_channelizer_tpu.dsp.pdw import (  # noqa: F401
     PdwBatch,

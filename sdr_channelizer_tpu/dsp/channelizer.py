@@ -27,12 +27,9 @@ Substituting ``m = pM + rho`` for the tap index and
 
 with frames ``F[n, rho'] = x[nM + rho']`` and the frame-aligned polyphase
 taps ``Hr[p, rho'] = h[pM + (M-1-rho')]``.  The channel extraction is a
-plain forward DFT over branches — on TPU that is one MXU matmul, and the
-whole channelizer fuses into a single ``(T, P*M) @ (P*M, M)`` product (see
-``ops/pallas/channelizer_kernel.py``).
-
-This module is the jnp reference implementation: clear, correct, and the
-parity oracle for the Pallas kernel.
+plain forward DFT over branches: ``jnp.fft`` or, equivalently, one
+``(T, M) @ (M, M)`` matmul with the shift folded into the matrix columns
+(:func:`dft_matrix`).
 """
 
 from __future__ import annotations
@@ -112,7 +109,7 @@ class Channelizer:
     def decimated_rate(self, sample_rate_sps: float) -> float:
         return sample_rate_sps / self.num_bands
 
-    def __call__(self, x: jax.Array, shift: bool = True, method: str = "auto") -> jax.Array:
+    def __call__(self, x: jax.Array, shift: bool = True, method: str = "fft") -> jax.Array:
         return channelize(x, self, shift=shift, method=method)
 
     def stream_block(
@@ -120,7 +117,7 @@ class Channelizer:
         x_block: jax.Array,
         state: ChannelizerState,
         shift: bool = True,
-        method: str = "auto",
+        method: str = "fft",
     ) -> Tuple[jax.Array, ChannelizerState]:
         """Channelize one block carrying filter history across calls.
 
@@ -130,30 +127,40 @@ class Channelizer:
         """
         return _channelize_block(
             x_block, state, jnp.asarray(self.taps_rev), self.num_bands, shift,
-            resolve_method(method),
+            method,
         )
 
 
-def resolve_method(method: str = "auto") -> str:
-    """Pick the channel-extraction backend.
+def dft_extract(u: jax.Array, num_bands: int, shift: bool = True) -> jax.Array:
+    """Channel extraction as a matmul: ``u @ W`` over the branch axis,
+    equal to ``fftshift(fft(u))`` (``shift``) up to f32 rounding."""
+    w = jnp.asarray(dft_matrix(num_bands, shifted=shift))
+    return jnp.matmul(u, w, precision=jax.lax.Precision.HIGHEST)
 
-    ``"fft"`` — ``jnp.fft.fft`` + external ``fftshift``; the bit-parity
-    oracle, and fastest on CPU.  ``"dft"`` — DFT-as-matmul on the MXU with
-    the shift folded into the matrix columns; the TPU path (XLA's FFT does
-    not lower on the TPU backend used here, and for per-hop sizes M <= a few
-    hundred the matmul wins regardless).  ``"auto"`` selects by backend.
+
+def fft_extract(u: jax.Array, shift: bool = True) -> jax.Array:
+    """Channel extraction by FFT over the branch axis."""
+    y = jnp.fft.fft(u, axis=-1)
+    return jnp.fft.fftshift(y, axes=-1) if shift else y
+
+
+def extract_channels(u: jax.Array, num_bands: int, shift: bool = True,
+                     method: str = "fft") -> jax.Array:
+    """Branch outputs ``u`` (..., T, M) -> channels.
+
+    ``method``: ``"fft"`` — ``jnp.fft.fft`` + ``fftshift``; the bit-parity
+    oracle, and the faster of the two on the CPU and on the H100 (see
+    ``ops.backend``).  ``"dft"`` — DFT-as-matmul with the shift folded into
+    the matrix columns, at ``precision=HIGHEST`` (a default-precision f32
+    matmul may run in TF32 on a GPU).
     """
-    if method != "auto":
-        return method
-    try:
-        platform = jax.devices()[0].platform
-    except RuntimeError:
-        platform = "cpu"
-    return "fft" if platform == "cpu" else "dft"
+    if method == "dft":
+        return dft_extract(u, num_bands, shift)
+    return fft_extract(u, shift)
 
 
 def channelize(
-    x: jax.Array, chan: Channelizer, shift: bool = True, method: str = "auto"
+    x: jax.Array, chan: Channelizer, shift: bool = True, method: str = "fft"
 ) -> jax.Array:
     """Channelize a 1-D complex capture. Returns ``(N // M, M)`` complex64."""
     m = chan.num_bands
@@ -162,10 +169,7 @@ def channelize(
     frames = x.reshape(*x.shape[:-1], n_frames, m)
     hist = jnp.zeros((*x.shape[:-1], chan.taps_per_band, m), frames.dtype)
     u = _fir_branches(frames, hist, jnp.asarray(chan.taps_rev))
-    if resolve_method(method) == "dft":
-        return u @ jnp.asarray(dft_matrix(m, shifted=shift))
-    y = jnp.fft.fft(u, axis=-1)
-    return jnp.fft.fftshift(y, axes=-1) if shift else y
+    return extract_channels(u, m, shift, method)
 
 
 @functools.partial(jax.jit, static_argnames=("num_bands", "shift", "method"))
@@ -174,12 +178,7 @@ def _channelize_block(x_block, state, taps_rev, num_bands, shift, method="fft"):
     n_frames = x_block.shape[-1] // m
     frames = x_block[: n_frames * m].reshape(n_frames, m)
     u = _fir_branches(frames, state.frames, taps_rev)
-    if method == "dft":
-        y = u @ jnp.asarray(dft_matrix(m, shifted=shift))
-    else:
-        y = jnp.fft.fft(u, axis=-1)
-        if shift:
-            y = jnp.fft.fftshift(y, axes=-1)
+    y = extract_channels(u, m, shift, method)
     p = taps_rev.shape[0]
     all_frames = jnp.concatenate([state.frames, frames], axis=0)
     new_state = ChannelizerState(frames=all_frames[-p:])
@@ -226,9 +225,8 @@ def channelize_planes(
 ) -> Tuple[jax.Array, jax.Array]:
     """Channelize with no complex dtype anywhere in the graph.
 
-    Some TPU transports lack complex-arithmetic lowering entirely; this path
-    runs the branch FIR on the real/imag float32 planes separately and the
-    DFT as four real MXU matmuls:
+    Runs the branch FIR on the real/imag float32 planes separately and the
+    DFT as four real matmuls (``precision=HIGHEST``):
 
         yr = ur @ Wr - ui @ Wi,   yi = ur @ Wi + ui @ Wr
 
@@ -247,8 +245,9 @@ def channelize_planes(
     w = dft_matrix(m, shifted=shift)
     wr = jnp.asarray(np.real(w).astype(np.float32))
     wi = jnp.asarray(np.imag(w).astype(np.float32))
-    yr = ur @ wr - ui @ wi
-    yi = ur @ wi + ui @ wr
+    mm = functools.partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
+    yr = mm(ur, wr) - mm(ui, wi)
+    yi = mm(ur, wi) + mm(ui, wr)
     return yr, yi
 
 
@@ -257,10 +256,7 @@ def dft_matrix(num_bands: int, shifted: bool = True, dtype=np.complex64) -> np.n
 
     With ``shifted=True`` the columns are reordered so ``u @ W`` equals
     ``fftshift(fft(u), axes=-1)`` — channel ``i`` is the band at
-    :func:`center_frequencies` ``[i]``.  On TPU the DFT-as-matmul runs on the
-    MXU and, unlike the FFT, column-splits cleanly across a channel-sharded
-    mesh (``parallel/pipeline.py``); for the small per-hop transform sizes
-    here (M <= a few hundred) it is also simply faster than XLA's FFT.
+    :func:`center_frequencies` ``[i]``.
     """
     m = int(num_bands)
     rho = np.arange(m)[:, None]

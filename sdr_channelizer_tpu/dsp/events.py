@@ -70,8 +70,7 @@ def quadratic_peak_time_masked(
     t = (toa - tmean) * w
     v = snr * w
     # 3x3 normal equations solved in closed form (Cramer) — elementwise ops
-    # only, so the fit lowers on TPU transports without a linalg custom
-    # call (jnp.linalg.solve does not).  Moments of the centered TOAs:
+    # only, no linalg call.  Moments of the centered TOAs:
     s0, s1 = n, jnp.sum(t)
     s2, s3, s4 = jnp.sum(t * t), jnp.sum(t ** 3), jnp.sum(t ** 4)
     b0, b1, b2 = jnp.sum(v), jnp.sum(t * v), jnp.sum(t * t * v)

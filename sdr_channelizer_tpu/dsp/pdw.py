@@ -1,4 +1,4 @@
-"""Pulse-descriptor-word (PDW) extraction — vectorized, TPU-native.
+"""Pulse-descriptor-word (PDW) extraction — vectorized.
 
 Reproduces the semantics of the reference's sequential edge-detector loops
 (wideband ``matlab/create_pdws.m:51-105``, channelized
@@ -44,7 +44,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional, Tuple
+from typing import Optional
 
 import jax
 import jax.numpy as jnp
@@ -53,41 +53,6 @@ import numpy as np
 from sdr_channelizer_tpu.config import PdwConfig
 from sdr_channelizer_tpu.ops import medians
 from sdr_channelizer_tpu.ops.medians import masked_median
-
-# Pulses at or below this many samples take the cheap 2-row stats kernel;
-# longer ones take the full max_pulse_samples-window kernel (see
-# _extract_channelized_pallas_stats).  128 (round 5): a <=128-sample pulse
-# spans at most TWO 128-lane rows from any alignment, and real channelized
-# pulses are overwhelmingly that short — the 3-tier {tiny, 128, long}
-# split measured faster than both the r4 {tiny, 256, long} (10.31 vs
-# 11.97 ms dense) and the 4-tier {tiny, 128, 256, long} (10.49) on v5e
-# (PROBE_r05 E/F/G).
-_SHORT_WINDOW = 128
-# v2-route tuning knobs (A/B'd full-graph in tools/tpu_probe_r4.py part H).
-_PIN_EDGES = True       # optimization barrier on the rank-search outputs
-_STATS_DB = False       # double-buffered stats-kernel window DMAs
-# find_ranks_cm partial-block size: 256 measured -0.31 ms/step dense vs
-# 512 on the cm2 route (PROBE_r04 part H; 1024 is +0.5, and the barrier
-# is now neutral but kept — it was -0.6 on the v1 shapes).
-_RANK_BLOCK = 256
-# Stats-kernel descent batching (0/1 = per-tile descents, the shipped
-# default; >1 opts into the batched kernel).  Round-5 A/B (PROBE_r05 A):
-# batching LOST end-to-end (+0.45 ms dense, +0.17 sparse at nt=8) — the
-# descent is THROUGHPUT-bound on the (g, LANES) masked counting passes,
-# not latency-bound as the round-4 part-J reading suggested, so stacking
-# tiles buys nothing and pays scratch-locality overhead.  The batched
-# kernel remains behind this knob for the record/other chips.
-_STATS_BATCH = 1
-# Extra sub-tier at window=128 below _SHORT_WINDOW (only active when
-# _SHORT_WINDOW > 128): the intermediate 4-tier form measured +0.18 ms
-# over the 3-tier _SHORT_WINDOW=128 default (PROBE_r05 G) — kept as a
-# knob for configs whose pulse mix wants a mid window.
-_TIER_W128 = False
-# Merge the tiny/saturation per-slot picks into two two-index gathers
-# (mag at [toa|te], satcs at [te-1|toa]) instead of four single-index
-# gathers — halves the gather-op count on the (M, T) streams.  A/B knob.
-_MERGED_PICKS = True
-
 
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass
@@ -150,22 +115,19 @@ def _edge_indices(edge: jax.Array, max_pulses: int) -> jax.Array:
     """Indices of True entries, padded with len(edge) (an out-of-range
     sentinel) to ``max_pulses``.
 
-    Sort-free (``jnp.nonzero(size=...)`` lowers through sort on some TPU
-    backends): each True element's rank is its exclusive prefix count, and a
-    scatter writes its position at that rank; ranks beyond ``max_pulses``
-    drop.
+    The r-th edge is the first position whose inclusive edge count reaches
+    r: a binary search of the ranks 1..max_pulses in the edge cumsum.
+    Ranks past the count come back as len(edge).
     """
-    t = edge.shape[0]
-    pos = jnp.arange(t, dtype=jnp.int32)
-    rank = jnp.cumsum(edge) - 1
-    rank = jnp.where(edge, rank, max_pulses)  # non-edges scatter out of range
-    out = jnp.full((max_pulses,), t, jnp.int32)
-    return out.at[rank].set(pos, mode="drop")
+    csum = jnp.cumsum(edge.astype(jnp.int32))
+    ranks = jnp.arange(1, max_pulses + 1, dtype=jnp.int32)
+    return jnp.searchsorted(csum, ranks, side="left").astype(jnp.int32)
 
 
 @functools.partial(
     jax.jit, static_argnames=("snr_threshold_db", "trailing_threshold_db",
-                              "saturation_level", "max_pulses", "max_pulse_samples")
+                              "saturation_level", "max_pulses", "max_pulse_samples",
+                              "median_method")
 )
 def extract_pdws_core(
     mag: jax.Array,
@@ -178,10 +140,13 @@ def extract_pdws_core(
     saturation_level: float,  # unused here (sat_sample precomputed); kept for cfg symmetry
     max_pulses: int,
     max_pulse_samples: int,
+    median_method: Optional[str] = None,
 ) -> PdwBatch:
     """Extract PDWs from one channel's magnitude/phase streams.
 
     mag, phase_deg, sat_sample: (T,).  noise_floor: scalar.
+    ``median_method`` is the per-pulse medians' method
+    (``ops.medians.masked_median``: None sorts).
     """
     del saturation_level
     t_len = mag.shape[-1]
@@ -193,78 +158,81 @@ def extract_pdws_core(
     else:
         trail_thresh = noise_floor * 10.0 ** (trailing_threshold_db / 10.0)
 
-    ge_lead = mag >= lead_thresh
-    le_trail = mag <= trail_thresh
-    state = hysteresis_scan(ge_lead, le_trail)
-    prev = jnp.concatenate([jnp.zeros((1,), bool), state[:-1]])
-    lead_edge = state & ~prev
-    trail_edge = ~state & prev  # fires at the first sample AFTER... see note
+    with jax.named_scope("latch"):
+        ge_lead = mag >= lead_thresh
+        le_trail = mag <= trail_thresh
+        state = hysteresis_scan(ge_lead, le_trail)
+        prev = jnp.concatenate([jnp.zeros((1,), bool), state[:-1]])
+        lead_edge = state & ~prev
+        trail_edge = ~state & prev
 
-    # NOTE: the latch state at sample jj already reflects sample jj's
-    # thresholds, so a trailing edge at sample jj (mag[jj] <= trail while
-    # previously active) shows as state[jj] = 0 with state[jj-1] = 1 —
-    # trail_edge[jj] is True exactly at the reference's `jj`.
-    toa_idx = _edge_indices(lead_edge, max_pulses)
-    te_idx = _edge_indices(trail_edge, max_pulses)
+    # The latch state at sample jj already reflects sample jj's thresholds,
+    # so a trailing edge at sample jj (mag[jj] <= trail while previously
+    # active) shows as state[jj] = 0 with state[jj-1] = 1 — trail_edge[jj]
+    # is True exactly at the reference's `jj`.
+    with jax.named_scope("edge_search"):
+        toa_idx = _edge_indices(lead_edge, max_pulses)
+        te_idx = _edge_indices(trail_edge, max_pulses)
     # Clamp to capacity: a capture with more pulses than slots silently drops
     # the overflow, and ``count`` must agree with the number of valid slots
     # (consumers sum counts across blocks/channels).
     count = jnp.minimum(jnp.sum(trail_edge), max_pulses).astype(jnp.int32)
     valid = jnp.arange(max_pulses) < count
     return _emit_batch(
-        mag, phase_deg, sat_sample, noise_floor, toa_idx, te_idx, valid, count, w
+        mag, phase_deg, sat_sample, noise_floor, toa_idx, te_idx, valid, count, w,
+        median_method,
     )
 
 
-def _emit_batch(mag, phase_deg, sat_sample, noise_floor, toa_idx, te_idx, valid, count, w):
+def _emit_batch(mag, phase_deg, sat_sample, noise_floor, toa_idx, te_idx, valid,
+                count, w, median_method=None):
     """Per-pulse statistics + batch assembly shared by the single-device and
     block-sharded extractors.  ``w = max_pulse_samples``."""
-    t_len = mag.shape[-1]
-    max_pulses = toa_idx.shape[-1]
-    del max_pulses
+    with jax.named_scope("pulse_stats"):
+        t_len = mag.shape[-1]
 
-    # Pad streams so fixed windows can be gathered at any edge index.
-    mag_p = jnp.concatenate([mag, jnp.full((w,), jnp.inf, mag.dtype)])
-    dph = phase_deg[1:] - phase_deg[:-1]
-    dph = jnp.where(dph < -180.0, dph + 360.0, dph)
-    dph = jnp.where(dph > 180.0, dph - 360.0, dph)
-    dph_p = jnp.concatenate([dph, jnp.zeros((w + 1,), dph.dtype)])
-    sat_p = jnp.concatenate([sat_sample, jnp.zeros((w,), bool)])
+        # Pad streams so fixed windows can be gathered at any edge index.
+        mag_p = jnp.concatenate([mag, jnp.full((w,), jnp.inf, mag.dtype)])
+        dph = phase_deg[1:] - phase_deg[:-1]
+        dph = jnp.where(dph < -180.0, dph + 360.0, dph)
+        dph = jnp.where(dph > 180.0, dph - 360.0, dph)
+        dph_p = jnp.concatenate([dph, jnp.zeros((w + 1,), dph.dtype)])
+        sat_p = jnp.concatenate([sat_sample, jnp.zeros((w,), bool)])
 
-    pos = jnp.arange(w)
+        pos = jnp.arange(w)
 
-    def per_pulse(i0, i1):
-        plen = jnp.minimum(i1 - i0 + 1, w)  # samples toa..jj inclusive
-        magwin = jax.lax.dynamic_slice_in_dim(mag_p, i0, w)
-        m_mask = pos < plen
-        med_mag = masked_median(magwin, m_mask)
-        # diff(phase(toa:jj)) = dph[toa .. jj-1], plen-1 entries
-        dwin = jax.lax.dynamic_slice_in_dim(dph_p, i0, w)
-        d_mask = pos < (plen - 1)
-        med_dph = masked_median(dwin, d_mask)
-        # saturation strictly inside the pulse: samples toa+1 .. jj-1
-        swin = jax.lax.dynamic_slice_in_dim(sat_p, i0, w)
-        s_mask = (pos >= 1) & (pos < (plen - 1))
-        sat = jnp.any(swin & s_mask)
-        return med_mag, med_dph, sat
+        def per_pulse(i0, i1):
+            plen = jnp.minimum(i1 - i0 + 1, w)  # samples toa..jj inclusive
+            magwin = jax.lax.dynamic_slice_in_dim(mag_p, i0, w)
+            m_mask = pos < plen
+            med_mag = masked_median(magwin, m_mask, method=median_method)
+            # diff(phase(toa:jj)) = dph[toa .. jj-1], plen-1 entries
+            dwin = jax.lax.dynamic_slice_in_dim(dph_p, i0, w)
+            d_mask = pos < (plen - 1)
+            med_dph = masked_median(dwin, d_mask, method=median_method)
+            # saturation strictly inside the pulse: samples toa+1 .. jj-1
+            swin = jax.lax.dynamic_slice_in_dim(sat_p, i0, w)
+            s_mask = (pos >= 1) & (pos < (plen - 1))
+            sat = jnp.any(swin & s_mask)
+            return med_mag, med_dph, sat
 
-    i0c = jnp.clip(toa_idx, 0, t_len)
-    i1c = jnp.clip(te_idx, 0, t_len)
-    med_mag, med_dph, sat = jax.vmap(per_pulse)(i0c, i1c)
+        i0c = jnp.clip(toa_idx, 0, t_len)
+        i1c = jnp.clip(te_idx, 0, t_len)
+        med_mag, med_dph, sat = jax.vmap(per_pulse)(i0c, i1c)
 
-    snr = 10.0 * jnp.log10(med_mag / noise_floor)
-    zero = jnp.zeros((), jnp.float32)
-    return PdwBatch(
-        toa_idx=jnp.where(valid, toa_idx, -1),
-        te_idx=jnp.where(valid, te_idx, -1),
-        pw_sec=jnp.where(valid, (te_idx - toa_idx).astype(jnp.float32), zero),
-        mag=jnp.where(valid, med_mag.astype(jnp.float32), zero),
-        snr_db=jnp.where(valid, snr.astype(jnp.float32), zero),
-        freq_offset_hz=jnp.where(valid, med_dph.astype(jnp.float32) / 360.0, zero),
-        saturated=jnp.where(valid, sat, False),
-        valid=valid,
-        count=count,
-    )
+        snr = 10.0 * jnp.log10(med_mag / noise_floor)
+        zero = jnp.zeros((), jnp.float32)
+        return PdwBatch(
+            toa_idx=jnp.where(valid, toa_idx, -1),
+            te_idx=jnp.where(valid, te_idx, -1),
+            pw_sec=jnp.where(valid, (te_idx - toa_idx).astype(jnp.float32), zero),
+            mag=jnp.where(valid, med_mag.astype(jnp.float32), zero),
+            snr_db=jnp.where(valid, snr.astype(jnp.float32), zero),
+            freq_offset_hz=jnp.where(valid, med_dph.astype(jnp.float32) / 360.0, zero),
+            saturated=jnp.where(valid, sat, False),
+            valid=valid,
+            count=count,
+        )
 
 
 @functools.partial(
@@ -363,8 +331,7 @@ def _prep_streams(iq: jax.Array, saturation_level: float):
 
 
 def _prep_streams_planes(yr: jax.Array, yi: jax.Array, saturation_level: float):
-    """Detection streams from real/imag float planes (no complex dtype —
-    for TPU transports without complex lowering; see
+    """Detection streams from real/imag float planes (see
     ``dsp.channelizer.channelize_planes``)."""
     mag = jnp.sqrt(yr * yr + yi * yi)
     phase_deg = jnp.rad2deg(jnp.arctan2(yi, yr))
@@ -378,33 +345,9 @@ def _extract_wideband_from_streams(
     sat: jax.Array,
     cfg: PdwConfig,
     noise_floor: jax.Array,
-    stats: str = "auto",
 ) -> PdwBatch:
-    """Shared wideband routing from precomputed (T,) detection streams:
-    Pallas stats when the block fits, blockwise past 2^24 samples on
-    sort-free backends, XLA otherwise — used by both the complex and the
-    planes entry points."""
-    too_long = mag.shape[-1] >= (1 << 24)
-    if stats == "auto":
-        if _pallas_stats_ok(mag.shape[-1], cfg):
-            stats = "pallas"
-        elif (too_long and medians.use_sort_free()
-              and _stats_window_rows_ok(cfg)):
-            stats = "blocked"  # kernel-feasible blocks, latch carried across
-        else:
-            if medians.use_sort_free() and not _stats_window_rows_ok(cfg):
-                _warn_stats_fallback(cfg, "extract_pdws (wideband)")
-            stats = "xla"
-    elif stats == "pallas" and too_long:
-        stats = "blocked"
-    if stats == "blocked":
-        return _extract_wideband_blocked(mag, phase_deg, sat, cfg, noise_floor)
-    if stats == "pallas":
-        batch = _extract_channelized_pallas_stats(
-            mag[:, None], phase_deg[:, None], sat[:, None], cfg,
-            jnp.reshape(noise_floor, (1,)),
-        )
-        return jax.tree.map(lambda v: v[0] if getattr(v, "ndim", 0) else v, batch)
+    """Wideband extraction from precomputed (T,) detection streams — shared
+    by the complex and the planes entry points."""
     return extract_pdws_core(
         mag,
         phase_deg,
@@ -423,17 +366,13 @@ def extract_pdws_planes(
     yi: jax.Array,
     cfg: PdwConfig,
     noise_floor: Optional[jax.Array] = None,
-    stats: str = "auto",
 ) -> PdwBatch:
-    """Wideband extraction from float planes (complex-free graph) — same
-    routing as :func:`extract_pdws` (the Pallas ``pulse_stats`` path on
-    sort-free backends; this is the wideband entry the real-TPU transport
-    can ingest, complex h2d being unimplemented there)."""
+    """Wideband extraction from float planes (complex-free graph) — the
+    same extraction as :func:`extract_pdws`."""
     mag, phase_deg, sat = _prep_streams_planes(yr, yi, cfg.saturation_level)
     if noise_floor is None:
         noise_floor = medians.median(mag)
-    return _extract_wideband_from_streams(
-        mag, phase_deg, sat, cfg, noise_floor, stats=stats)
+    return _extract_wideband_from_streams(mag, phase_deg, sat, cfg, noise_floor)
 
 
 def extract_pdws_channelized_streams(
@@ -442,27 +381,15 @@ def extract_pdws_channelized_streams(
     sat: jax.Array,
     cfg: PdwConfig,
     noise_floor: Optional[jax.Array] = None,
-    stats: str = "auto",
+    median_method: Optional[str] = None,
 ) -> PdwBatch:
-    """Per-channel extraction from precomputed (T, M) detection streams.
-
-    ``stats``: where the per-pulse median statistics run — ``"xla"`` (the
-    vmapped gather + radix-select path), ``"pallas"`` (the fused
-    ``pulse_stats`` kernel: windows DMA'd once, selection in VMEM — the
-    fast path on real TPUs), or ``"auto"`` (pallas off-CPU).
-    """
+    """Per-channel extraction from precomputed (T, M) detection streams:
+    the latch, edge search and per-pulse statistics of
+    :func:`extract_pdws_core`, vmapped over channels.  ``median_method``
+    pins every median's method (None: the noise floor takes the backend's,
+    the per-pulse medians sort)."""
     if noise_floor is None:
-        noise_floor = medians.median(mag, axis=0)
-    if stats == "auto":
-        ok = _pallas_stats_ok(mag.shape[0], cfg)
-        if (not ok and medians.use_sort_free()
-                and not _stats_window_rows_ok(cfg)):
-            _warn_stats_fallback(cfg, "extract_pdws_channelized_streams")
-        stats = "pallas" if ok else "xla"
-    if stats == "pallas":
-        return _extract_channelized_pallas_stats(
-            mag, phase_deg, sat, cfg, noise_floor
-        )
+        noise_floor = medians.median(mag, axis=0, method=median_method)
     core = functools.partial(
         extract_pdws_core,
         snr_threshold_db=cfg.snr_threshold_db,
@@ -470,722 +397,9 @@ def extract_pdws_channelized_streams(
         saturation_level=cfg.saturation_level,
         max_pulses=cfg.max_pulses,
         max_pulse_samples=cfg.max_pulse_samples,
+        median_method=median_method,
     )
     return jax.vmap(core, in_axes=(1, 1, 1, 0))(mag, phase_deg, sat, noise_floor)
-
-
-def extract_pdws_channelized_streams_cm(
-    mag: jax.Array,
-    mag_cm: jax.Array,
-    dph_cm: jax.Array,
-    sat_cm: jax.Array,
-    cfg: PdwConfig,
-    noise_floor: Optional[jax.Array] = None,
-) -> PdwBatch:
-    """Per-channel extraction when the channel-major detection streams are
-    already materialized (the fused channelizer kernel emits them —
-    ``pallas_channelize_streams_*_cm``): skips the in-path transpose.
-
-    ``mag`` is the (T, M) time-major magnitude (latch + noise floor);
-    ``mag_cm/dph_cm/sat_cm`` are the (128k, T_pad) channel-major streams.
-    Callers must check :func:`_pallas_stats_ok` first (this path has no
-    XLA fallback — it needs time-major phase/sat for that).
-    """
-    if noise_floor is None:
-        noise_floor = medians.median(mag, axis=0)
-    return _extract_channelized_pallas_stats(
-        mag, None, None, cfg, noise_floor,
-        cm_streams=(mag_cm, dph_cm, sat_cm),
-    )
-
-
-# Max DMA-window rows of the ``pulse_stats`` kernel before its scoped VMEM
-# tops out.  Cost model: the merged dual-median radix descent carries ~a
-# dozen (TILE*rows, 128) f32 live arrays (two key sets, two masks, window
-# data, index planes) plus the stream buffers.  Round-5 recalibration at
-# the kernel's 100 MB scoped limit (v5e compile+run probe, 2026-08-21):
-# rows = 13 / 17 / 25 (windows 1536 / 2048 / 3072) all compile and run;
-# rows = 33 (window 4096) was rejected at 139 MB under the old 64 MB
-# setting and stays out of bounds.  Other TPU generations: retune by
-# bumping this constant and running tests/test_pulse_stats_kernel.py on
-# the target chip.
-_STATS_MAX_WINDOW_ROWS = 25
-_stats_fallbacks = 0  # observability: routing decisions away from Pallas
-
-
-def _stats_window_rows_ok(cfg: PdwConfig) -> bool:
-    """VMEM bound on the ``pulse_stats`` kernel's window height (see
-    ``_STATS_MAX_WINDOW_ROWS``).  Routing — not the kernel's own
-    feasibility check — enforces the measured-known-good bound so
-    wider-window configs fall back to the exact XLA formulation instead
-    of failing the whole program's compile."""
-    return (cfg.max_pulse_samples + 127) // 128 + 1 <= _STATS_MAX_WINDOW_ROWS
-
-
-def _warn_stats_fallback(cfg: PdwConfig, where: str) -> None:
-    """A sort-free (TPU) backend is about to take the slow XLA statistics
-    path because the config's window exceeds the kernel VMEM bound — warn
-    loudly and count it: this silent routing was the round-3 cause of the
-    tracker missing real time (VERDICT r3 weak #7)."""
-    global _stats_fallbacks
-    _stats_fallbacks += 1
-    import warnings
-
-    max_w = (_STATS_MAX_WINDOW_ROWS - 1) * 128
-    warnings.warn(
-        f"{where}: max_pulse_samples={cfg.max_pulse_samples} exceeds the "
-        f"pulse_stats kernel's VMEM window bound ({max_w} samples); "
-        f"falling back to the ~10x slower XLA statistics path.  Reduce "
-        f"max_pulse_samples, or use the event-mode mean-amplitude "
-        f"extractor (extract_pdws_event) which has no window bound.",
-        stacklevel=3,
-    )
-
-
-def _pallas_stats_ok(t_len: int, cfg: PdwConfig) -> bool:
-    """True when the ``stats="auto"`` path should use the ``pulse_stats``
-    Pallas kernel: sort-free backend AND the block satisfies the kernel's
-    static shape constraints (else fall back to the XLA formulation instead
-    of crashing at trace time — too-short CLI captures, or single blocks
-    past 2^24 samples), AND the window fits VMEM."""
-    from sdr_channelizer_tpu.ops.pallas.pulse_stats_kernel import (
-        stats_kernel_feasible,
-    )
-
-    return (medians.use_sort_free()
-            and _stats_window_rows_ok(cfg)
-            and stats_kernel_feasible(int(t_len), cfg.max_pulse_samples))
-
-
-def _extract_channelized_pallas_stats(
-    mag: jax.Array,
-    phase_deg: jax.Array,
-    sat: jax.Array,
-    cfg: PdwConfig,
-    noise_floor: jax.Array,
-    entry_active: Optional[jax.Array] = None,
-    own_len: Optional[int] = None,
-    cm_streams: Optional[Tuple[jax.Array, jax.Array, jax.Array]] = None,
-) -> PdwBatch:
-    """Channelized extraction with edge detection in XLA and per-pulse
-    statistics in the ``pulse_stats`` Pallas kernel.  Emits the same batch
-    as the XLA path (identical order statistics).
-
-    ``entry_active``/``own_len`` give this path the same time-block contract
-    as :func:`extract_pdws_block_core`: the streams cover ``own_len`` owned
-    samples plus a right halo, the latch enters in ``entry_active``, and only
-    pulses whose leading edge is owned are emitted (trailing edges and
-    statistics may extend into the halo).  Defaults reproduce the
-    whole-capture behavior (latch starts inactive, everything owned).
-
-    ``cm_streams``, when given, are precomputed channel-major
-    ``(mag_cm, dph_cm, sat_cm)`` detection streams (the fused channelizer
-    kernel emits them directly — ``channelizer_kernel.py``
-    ``pallas_channelize_streams_*_cm``); ``phase_deg``/``sat`` may then be
-    ``None`` and the in-path transpose is skipped.
-    """
-    from sdr_channelizer_tpu.ops.pallas.pulse_stats_kernel import (
-        TILE,
-        pulse_stats,
-        pulse_stats_dense,
-        stats_kernel_feasible,
-    )
-
-    t_len, m = mag.shape
-    own = t_len if own_len is None else own_len
-    entry = jnp.zeros((m,), bool) if entry_active is None else entry_active
-    max_pulses = cfg.max_pulses
-    w = cfg.max_pulse_samples
-    p_slots = ((max_pulses + TILE - 1) // TILE) * TILE
-
-    lead_thresh = noise_floor * 10.0 ** (cfg.snr_threshold_db / 10.0)
-    if cfg.trailing_threshold_db is None:
-        trail_thresh = lead_thresh
-    else:
-        trail_thresh = noise_floor * 10.0 ** (cfg.trailing_threshold_db / 10.0)
-
-    # Edge positions via searchsorted on the rank cumsum: the r-th edge is
-    # the first t with cumsum >= r+1, and slots past the count come back as
-    # t_len — the same sentinel semantics as _edge_indices, but gather-based
-    # (binary search) instead of a scatter, which is an order of magnitude
-    # faster on TPU.  When the block enters active, the first trailing edge
-    # closes the previous block's pulse — skip it (latch events alternate).
-    ranks = jnp.arange(1, p_slots + 1, dtype=jnp.int32)
-    if medians.use_sort_free():
-        # Single-pass Pallas latch kernel (block-carried state) instead of
-        # XLA's log-depth associative scan — see ops/pallas/latch_kernel.py.
-        # It emits channel-major cumsums so the rank search can be the
-        # dense two-level formulation (ops/rank_find.py) instead of
-        # jnp.searchsorted's scalar-gather binary search (~13 ms of the
-        # 37 ms step at 16.7M samples, tools/tpu_bisect.py).
-        from sdr_channelizer_tpu.ops.pallas.latch_kernel import (
-            pallas_latch_cumsums,
-        )
-        from sdr_channelizer_tpu.ops.rank_find import find_ranks_cm
-
-        cl_cm, ct_cm = pallas_latch_cumsums(
-            mag, lead_thresh, trail_thresh, entry
-        )
-        ranks_2d = jnp.broadcast_to(
-            ranks.astype(jnp.float32)[None, :], (m, p_slots)
-        )
-        toa_idx = find_ranks_cm(cl_cm[:m], ranks_2d, t_len)
-        te_idx = find_ranks_cm(
-            ct_cm[:m], ranks_2d + entry.astype(jnp.float32)[:, None], t_len
-        )
-        # The rank searches read the full (M, T) cumsums; downstream
-        # consumers that fuse them in re-run that read.  Pin the
-        # (M, p_slots) results so the tail's many consumers (tier masks,
-        # tiny picks, compaction, emit) share ONE materialized copy
-        # (-0.6 ms/step in-graph on v5e, TAIL_BISECT_r03.json v_bar vs
-        # v_old; the same file records that the other round-3 tail
-        # candidates — merged kernel tiers, blocked tiny picks — LOST
-        # end-to-end despite winning isolated micros).
-        toa_idx, te_idx = jax.lax.optimization_barrier((toa_idx, te_idx))
-        # Leads within the owned region (ranks past n_own point into the
-        # halo; downstream stats for them are garbage masked by `matched`).
-        n_own = cl_cm[:m, own - 1].astype(jnp.int32)
-    else:
-        ge_lead = mag >= lead_thresh[None, :]
-        le_trail = mag <= trail_thresh[None, :]
-        a, b = hysteresis_fns(ge_lead, le_trail, axis=0)
-        state = jnp.where(entry[None, :], b, a)
-        prev = jnp.concatenate([entry[None, :], state[:-1]])
-        lead_edge = state & ~prev
-        trail_edge = ~state & prev
-        owned_lead = lead_edge & (jnp.arange(t_len)[:, None] < own)
-
-        def find_edges(edge_col, skip):
-            csum = jnp.cumsum(edge_col.astype(jnp.int32))
-            return jnp.searchsorted(csum, ranks + skip, side="left").astype(jnp.int32)
-
-        zeros_m = jnp.zeros((m,), jnp.int32)
-        toa_idx = jax.vmap(find_edges, in_axes=(1, 0))(owned_lead, zeros_m)
-        te_idx = jax.vmap(find_edges, in_axes=(1, 0))(
-            trail_edge, entry.astype(jnp.int32)
-        )
-        n_own = jnp.sum(owned_lead, axis=0).astype(jnp.int32)
-    matched = (jnp.arange(p_slots)[None, :] < n_own[:, None]) & (te_idx < t_len)
-    count = jnp.minimum(jnp.sum(matched, axis=1), max_pulses).astype(jnp.int32)
-    valid = jnp.arange(p_slots)[None, :] < count[:, None]
-
-    # Channel-major streams for the stats kernel.  The +inf end-of-capture
-    # latch pad (sharded/streamed right halos) must NOT reach the stats
-    # streams: the MXU transpose and the kernel's matmul-tree reductions
-    # turn inf into NaN (inf * 0) and poison every slot sharing a tile.
-    # Matched pulses never cover an inf sample (inf can't cross the
-    # trailing threshold, so the latch never closes over it), so zeroing is
-    # invisible to emitted statistics.
-    def xla_cm_streams(mag_s):
-        dph = phase_deg[1:] - phase_deg[:-1]
-        dph = jnp.where(dph < -180.0, dph + 360.0, dph)
-        dph = jnp.where(dph > 180.0, dph - 360.0, dph)
-        dph = jnp.concatenate([dph, jnp.zeros((1, m), dph.dtype)])
-        return mag_s.T, dph.T, sat.astype(jnp.float32).T
-
-    if cm_streams is not None:
-        mag_cm, dph_cm, sat_cm = cm_streams
-    else:
-        # Only block-contract callers can carry the inf pad (whole captures
-        # are normalized data) — keep the no-halo path copy-free.
-        mag_s = (jnp.where(jnp.isinf(mag), jnp.float32(0.0), mag)
-                 if own_len is not None else mag)
-        if medians.use_sort_free():
-            # Fused MXU transpose + wrapped phase diff (XLA's transpose of
-            # the (T, M) detection streams is ~8 ms/16.7M samples on v5e —
-            # an order of magnitude over its HBM bound).  Returns
-            # (128, T_padded) arrays; the stats kernel takes the true t_len
-            # instead of a slice.
-            from sdr_channelizer_tpu.ops.pallas.transpose_kernel import (
-                pallas_cm_streams,
-            )
-
-            mag_cm, dph_cm, sat_cm = pallas_cm_streams(
-                mag_s, phase_deg, sat.astype(jnp.float32)
-            )
-        else:
-            mag_cm, dph_cm, sat_cm = xla_cm_streams(mag_s)
-
-    sw = _SHORT_WINDOW
-    if w > sw and stats_kernel_feasible(t_len, sw):
-        # Three-tier stats: the kernel's per-pulse cost is dominated by its
-        # 3 window DMAs per slot, so pulses whose masked medians have a
-        # closed form skip it entirely, and the rest split by window size.
-        #   tiny  (plen <= 2): med mag = mean of the 1-2 samples, med dph =
-        #       the single first diff (or NaN), saturation mask empty —
-        #       three 1-element gathers, NO kernel slots.  Saturating
-        #       captures (noise transients at every band's slot cap) would
-        #       otherwise pay M*max_pulses window DMAs (create_pdws.m:70-100
-        #       semantics preserved bit-for-bit: mean-of-two-middles over a
-        #       <=2-element window IS (a+b)/2, and f32 + commutes).
-        #   short (plen <= 256): 3-row kernel windows.
-        #   long  (the rest): full max_pulse_samples kernel windows.
-        # Each kernel tier is compacted into ONE dense cross-channel slot
-        # list: cost scales with occupied pulse tiles, so all channels'
-        # rare long pulses share a handful of tiles and sparse captures pay
-        # per pulse, not per M * max_pulses capacity.
-        n_flat = m * p_slots
-        flat_toa = toa_idx.reshape(-1)
-        flat_te = te_idx.reshape(-1)
-        chan_f = jnp.broadcast_to(
-            jnp.arange(m, dtype=jnp.int32)[:, None], (m, p_slots)
-        ).reshape(-1)
-        plen = flat_te - flat_toa + 1
-        valid_slot = flat_toa < t_len
-        closed = valid_slot & (flat_te < t_len)
-        is_tiny = closed & (plen <= 2)
-        is_short = closed & ~is_tiny & (plen <= sw)
-        is_long = valid_slot & ~is_tiny & ~is_short
-
-        # Per-row (channel-major) picks: row i of the (m, p_slots) edge
-        # index arrays IS channel i, so ``take_along_axis(axis=1)`` on the
-        # cm streams gives vals[c, idx] directly.  Measured 6x faster than
-        # the equivalent flat 1-D gather on v5e (0.08 ms vs 0.47 ms per
-        # 32Ki-pick pass, STATS_COST_r02.json pick_* rows) — the per-row
-        # minor-axis gather vectorizes where the flat gather serializes.
-        safe_toa2 = jnp.minimum(toa_idx, t_len - 1)
-        safe_te2 = jnp.minimum(te_idx, t_len - 1)
-        plen2 = plen.reshape(m, p_slots)
-        mag_a = jnp.take_along_axis(mag_cm[:m], safe_toa2, axis=1)
-        mag_b = jnp.take_along_axis(mag_cm[:m], safe_te2, axis=1)
-        tiny_mag = jnp.where(plen2 >= 2, 0.5 * (mag_a + mag_b), mag_a)
-        tiny_dph = jnp.where(
-            plen2 >= 2,
-            jnp.take_along_axis(dph_cm[:m], safe_toa2, axis=1),
-            jnp.float32(np.nan),
-        )
-
-        def part(sel):
-            # Compact the selected slots to the front with a cumsum rank +
-            # three drop-mode scatters.  An alternative rank-search + gather
-            # formulation (no scatters) was measured SLOWER here on v5e —
-            # 2.51 ms vs 1.45 ms marginal at n_flat = 32Ki
-            # (BISECT_STATS_r02.json q2 vs q2s, formulation in git history):
-            # these are short 1-D slot lists, unlike the 16.7M-sample edge
-            # cumsum where the dense rank search wins by ~10x
-            # (tools/tpu_bisect.py).
-            r_sc = jnp.cumsum(sel.astype(jnp.int32)) - 1
-            r_sc = jnp.where(sel, r_sc, n_flat)
-            base = jnp.full((n_flat,), t_len, jnp.int32)
-            return (base.at[r_sc].set(flat_toa, mode="drop"),
-                    base.at[r_sc].set(flat_te, mode="drop"),
-                    jnp.zeros((n_flat,), jnp.int32).at[r_sc].set(
-                        chan_f, mode="drop"),
-                    jnp.minimum(r_sc, n_flat - 1))
-
-        toa_s, te_s, ch_s, rank_s = part(is_short)
-        toa_l, te_l, ch_l, rank_l = part(is_long)
-        outs_s = pulse_stats_dense(mag_cm, dph_cm, sat_cm, toa_s, te_s, ch_s,
-                                   window=sw, t_len=t_len,
-                                   batch_tiles=_STATS_BATCH)
-        outs_l = pulse_stats_dense(mag_cm, dph_cm, sat_cm, toa_l, te_l, ch_l,
-                                   window=w, t_len=t_len,
-                                   batch_tiles=_STATS_BATCH)
-        is_tiny_2d = is_tiny.reshape(m, p_slots)
-
-        # One combined gather per output instead of two: short and long
-        # slots are disjoint, so index a concatenated [short | long] result
-        # table with a single per-slot rank (halves the gather passes).
-        rank_c = jnp.where(is_short, rank_s, rank_l + n_flat).reshape(
-            m, p_slots)
-
-        def mergev(vs, vl, tiny):
-            kern = jnp.concatenate([vs, vl])[rank_c]
-            return jnp.where(is_tiny_2d, tiny, kern)
-
-        zeros2d = jnp.zeros((m, p_slots), jnp.float32)
-        med_mag, med_dph, sat_any = (
-            mergev(vs, vl, tiny) for (vs, vl), tiny in zip(
-                zip(outs_s, outs_l), (tiny_mag, tiny_dph, zeros2d))
-        )
-    else:
-        med_mag, med_dph, sat_any = pulse_stats(
-            mag_cm, dph_cm, sat_cm, toa_idx, te_idx, window=w, t_len=t_len,
-            batch_tiles=_STATS_BATCH,
-        )
-
-    snr = 10.0 * jnp.log10(med_mag / noise_floor[:, None])
-    zero = jnp.zeros((), jnp.float32)
-    sl = slice(None), slice(0, max_pulses)
-    valid_s = valid[sl]
-    return PdwBatch(
-        toa_idx=jnp.where(valid_s, toa_idx[sl], -1),
-        te_idx=jnp.where(valid_s, te_idx[sl], -1),
-        pw_sec=jnp.where(valid_s, (te_idx[sl] - toa_idx[sl]).astype(jnp.float32), zero),
-        mag=jnp.where(valid_s, med_mag[sl], zero),
-        snr_db=jnp.where(valid_s, snr[sl], zero),
-        freq_offset_hz=jnp.where(valid_s, med_dph[sl] / 360.0, zero),
-        saturated=jnp.where(valid_s, sat_any[sl] > 0.5, False),
-        valid=valid_s,
-        count=count,
-    )
-
-
-# Noise floor via the VMEM-resident Pallas kernel (one HBM read + bits=2
-# levels) instead of the XLA 8-pass bits=4 descent; A/B knob (round 5).
-_NF_KERNEL = True
-
-
-def noise_floor_cm(mag_cm: jax.Array, m: int, t_len: int,
-                   bits: int = 4) -> jax.Array:
-    """Per-channel median noise floor from the channel-major magnitude
-    stream (``create_pdws_channelized.m:73`` semantics — exact median over
-    the whole capture).  Pad columns past ``t_len`` are masked out.
-
-    Sort-free (TPU) backends take the VMEM-resident Pallas kernel
-    (``ops/pallas/nf_kernel.py``: ONE read of the stream instead of one
-    per radix level) when the shape allows; otherwise the ``bits``-per-pass
-    XLA value-space descent.  Both pick identical order statistics."""
-    from sdr_channelizer_tpu.ops.pallas.nf_kernel import (
-        nf_kernel_feasible,
-        pallas_noise_floor_cm,
-    )
-
-    r8 = ((m + 7) // 8) * 8
-    if (_NF_KERNEL and medians.use_sort_free()
-            and nf_kernel_feasible(mag_cm.shape[1])
-            and mag_cm.shape[0] >= r8):
-        return pallas_noise_floor_cm(mag_cm[:r8], t_len=t_len)[:m]
-    rows = mag_cm[:m]
-    if mag_cm.shape[1] == t_len:
-        return medians.median(rows, axis=1, bits=bits)
-    mask = jnp.arange(mag_cm.shape[1]) < t_len
-    return medians.masked_median(rows, mask[None, :], axis=1, bits=bits)
-
-
-def _extract_channelized_cm2(
-    mag_cm: jax.Array,
-    dph_cm: jax.Array,
-    satcs_cm: jax.Array,
-    cfg: PdwConfig,
-    noise_floor: jax.Array,
-    t_len: int,
-    m: int,
-    tier_mode: str = "grid",
-    gate_slots: bool = False,
-    entry_active: Optional[jax.Array] = None,
-    own_len: Optional[int] = None,
-    mag_latch_cm: Optional[jax.Array] = None,
-) -> PdwBatch:
-    """v2 channel-major extraction — the round-4 headline tail.
-
-    Inputs are the fused channelizer kernel's v2 streams
-    (``pallas_channelize_streams_packed_cm2``): channel-major magnitude and
-    wrapped phase diff plus the saturation **cumsum**.  Structural changes
-    vs :func:`_extract_channelized_pallas_stats` (identical emitted PDWs —
-    same order statistics, thresholds, and slot layout):
-
-    * the latch runs channel-major (``pallas_latch_cumsums_cm``): no MXU
-      transpose flips, and lead+trail cumsums stack into ONE (2R, T) array
-      for any M, so the rank search is a single ``find_ranks_cm`` call;
-    * NO flat cross-channel compaction: the short/long stats tiers run on
-      the per-channel (M, p_slots) slot grid with tier-masked sentinels —
-      the kernel's per-tile live flags skip empty tiles, so the two
-      cumsum+scatter compaction passes (+ the merge gather) disappear from
-      the graph.  Worst-case (every tile mixed-tier) the kernel visits the
-      same tiles the compacted form would have packed; typical captures
-      visit the handful of tiles their real pulses occupy;
-    * saturation comes from the cumsum: two ``take_along_axis`` gathers
-      per slot (interior count ``S[te-1] - S[toa]``) instead of a third
-      whole-window DMA per kernel slot.
-
-    ``entry_active``/``own_len`` give this path the same time-block
-    contract as :func:`extract_pdws_block_core` (sharded/streamed use):
-    the streams cover ``own_len`` owned samples plus a right halo, the
-    latch enters in ``entry_active`` (per channel), and only pulses whose
-    leading edge is owned are emitted — trailing edges and statistics may
-    extend into the halo.  Defaults reproduce whole-capture behavior.
-    """
-    from sdr_channelizer_tpu.ops.pallas.latch_kernel import (
-        pallas_latch_cumsums_cm,
-    )
-    from sdr_channelizer_tpu.ops.pallas.pulse_stats_kernel import (
-        TILE,
-        pulse_stats,
-        stats_kernel_feasible,
-    )
-    from sdr_channelizer_tpu.ops.rank_find import find_ranks_cm
-
-    max_pulses = cfg.max_pulses
-    w = cfg.max_pulse_samples
-    p_slots = ((max_pulses + TILE - 1) // TILE) * TILE
-    r = mag_cm.shape[0]
-
-    lead_thresh = noise_floor * 10.0 ** (cfg.snr_threshold_db / 10.0)
-    if cfg.trailing_threshold_db is None:
-        trail_thresh = lead_thresh
-    else:
-        trail_thresh = noise_floor * 10.0 ** (cfg.trailing_threshold_db / 10.0)
-
-    own = t_len if own_len is None else own_len
-    # ``mag_latch_cm``: optional latch-only magnitude (the sharded last
-    # shard writes +inf over its halo columns there so a pulse open at
-    # capture end never closes — the stats/tiny reads keep the plain
-    # stream, whose halo values are only ever mask-gathered).
-    packed = pallas_latch_cumsums_cm(
-        mag_cm if mag_latch_cm is None else mag_latch_cm,
-        lead_thresh, trail_thresh, m, entry_active=entry_active)
-    # (2R, T): rows [0, R) lead cumsums, [R, 2R) trail — one search.
-    # When the block enters active, the first trailing edge closes the
-    # previous block's pulse — skip it (latch events alternate).
-    ranks = jnp.broadcast_to(
-        jnp.arange(1, p_slots + 1, dtype=jnp.float32)[None, :],
-        (2 * r, p_slots))
-    if entry_active is not None:
-        skip = jnp.zeros((2 * r,), jnp.float32).at[r:r + m].set(
-            entry_active.astype(jnp.float32))
-        ranks = ranks + skip[:, None]
-    # Rank-search block: 256 measured best at the 128-row M=64 shape,
-    # 128 best at the 1120-row M=560 shape (-0.61 ms, M560_r05 knobs) —
-    # more cumsum rows favor smaller partial blocks.
-    rb = _RANK_BLOCK if packed.shape[0] <= 256 else min(_RANK_BLOCK, 128)
-    idx = find_ranks_cm(packed, ranks, t_len, block=rb)
-    toa_idx = idx[:m]
-    te_idx = idx[r:r + m]
-    # Leads within the owned region (ranks past n_own point into the halo;
-    # their stats are garbage masked by `matched`).
-    n_own = packed[:m, own - 1].astype(jnp.int32)
-    if _PIN_EDGES:
-        # Pin the rank-search outputs: the tail's many consumers share ONE
-        # materialized copy instead of re-running the cumsum reads
-        # (TAIL_BISECT_r03.json v_bar, -0.6 ms/step on the v1 shapes;
-        # re-validated on the cm2 route in PROBE_r04 part H).
-        toa_idx, te_idx = jax.lax.optimization_barrier((toa_idx, te_idx))
-
-    matched = (jnp.arange(p_slots)[None, :] < n_own[:, None]) & (te_idx < t_len)
-    count = jnp.minimum(jnp.sum(matched, axis=1), max_pulses).astype(jnp.int32)
-    valid = jnp.arange(p_slots)[None, :] < count[:, None]
-
-    plen = te_idx - toa_idx + 1
-    valid_slot = toa_idx < t_len
-    closed = valid_slot & (te_idx < t_len)
-    safe_toa = jnp.minimum(toa_idx, t_len - 1)
-    safe_te = jnp.minimum(te_idx, t_len - 1)
-
-    # Tiny tier: closed-form picks (no kernel slots), as in v1.  A
-    # plen<=4 extension (exact median-of-3/4 min/max networks, removing
-    # the 3-4-sample leakage transients from the short kernel) was
-    # measured SLOWER end-to-end on v5e — dense +0.34 ms, sparse
-    # +2.7 ms: its 7 gather passes cost more than the live-tile savings
-    # (round-3 lesson again: composition beats micro-reasoning).
-    p_cols = toa_idx.shape[1]
-    if _MERGED_PICKS:
-        # One two-index gather per stream (same picks, half the gather ops).
-        mg = jnp.take_along_axis(
-            mag_cm[:m], jnp.concatenate([safe_toa, safe_te], axis=1), axis=1)
-        mag_a, mag_b = mg[:, :p_cols], mg[:, p_cols:]
-    else:
-        mag_a = jnp.take_along_axis(mag_cm[:m], safe_toa, axis=1)
-        mag_b = jnp.take_along_axis(mag_cm[:m], safe_te, axis=1)
-    tiny_mag = jnp.where(plen >= 2, 0.5 * (mag_a + mag_b), mag_a)
-    tiny_dph = jnp.where(
-        plen >= 2, jnp.take_along_axis(dph_cm[:m], safe_toa, axis=1),
-        jnp.float32(np.nan))
-
-    # Saturation from the cumsum: interior samples toa+1 .. te-1 have count
-    # S[te-1] - S[toa] (S inclusive) — exact for every tier incl. tiny
-    # (plen <= 2 has an empty interior and the difference is 0).
-    if _MERGED_PICKS:
-        sg = jnp.take_along_axis(
-            satcs_cm[:m],
-            jnp.concatenate([jnp.maximum(safe_te - 1, 0), safe_toa], axis=1),
-            axis=1)
-        s_hi, s_lo = sg[:, :p_cols], sg[:, p_cols:]
-    else:
-        s_hi = jnp.take_along_axis(satcs_cm[:m], jnp.maximum(safe_te - 1, 0),
-                                   axis=1)
-        s_lo = jnp.take_along_axis(satcs_cm[:m], safe_toa, axis=1)
-    sat_any = (s_hi - s_lo) > 0.5
-
-    sw = _SHORT_WINDOW
-    sentinel = jnp.int32(t_len)
-    if w > sw and stats_kernel_feasible(t_len, sw):
-        is_tiny = closed & (plen <= 2)
-        # Optional rows=2 sub-tier: closed pulses <= 128 samples (the vast
-        # majority of real channelized pulses) descend over (2, 128)-row
-        # windows instead of (3, 128) — see _TIER_W128.
-        use_w128 = _TIER_W128 and sw > 128 and tier_mode != "compact"
-        if use_w128:
-            is_s128 = closed & ~is_tiny & (plen <= 128)
-            is_short = closed & ~is_tiny & ~is_s128 & (plen <= sw)
-        else:
-            is_s128 = None
-            is_short = closed & ~is_tiny & (plen <= sw)
-        is_long = valid_slot & ~is_tiny & ~is_short
-        if use_w128:
-            is_long = is_long & ~is_s128
-
-        if tier_mode == "compact":
-            # v1-style flat cross-channel compaction (cumsum rank + drop
-            # scatters) — dense lists so the kernel visits
-            # ceil(pulses/TILE) tiles; the A/B alternative to the grid
-            # mode when non-tiny pulses are sparse but spread.
-            from sdr_channelizer_tpu.ops.pallas.pulse_stats_kernel import (
-                pulse_stats_dense,
-            )
-
-            n_flat = m * p_slots
-            flat_toa = toa_idx.reshape(-1)
-            flat_te = te_idx.reshape(-1)
-            chan_f = jnp.broadcast_to(
-                jnp.arange(m, dtype=jnp.int32)[:, None], (m, p_slots)
-            ).reshape(-1)
-
-            def part(sel):
-                r_sc = jnp.cumsum(sel.reshape(-1).astype(jnp.int32)) - 1
-                r_sc = jnp.where(sel.reshape(-1), r_sc, n_flat)
-                base = jnp.full((n_flat,), t_len, jnp.int32)
-                return (base.at[r_sc].set(flat_toa, mode="drop"),
-                        base.at[r_sc].set(flat_te, mode="drop"),
-                        jnp.zeros((n_flat,), jnp.int32).at[r_sc].set(
-                            chan_f, mode="drop"),
-                        jnp.minimum(r_sc, n_flat - 1))
-
-            toa_s, te_s, ch_s, rank_s = part(is_short)
-            toa_l, te_l, ch_l, rank_l = part(is_long)
-            outs_s = pulse_stats_dense(mag_cm, dph_cm, None, toa_s, te_s,
-                                       ch_s, window=sw, t_len=t_len,
-                                       batch_tiles=_STATS_BATCH)
-            outs_l = pulse_stats_dense(mag_cm, dph_cm, None, toa_l, te_l,
-                                       ch_l, window=w, t_len=t_len,
-                                       batch_tiles=_STATS_BATCH)
-            rank_c = jnp.where(is_short.reshape(-1), rank_s,
-                               rank_l + n_flat).reshape(m, p_slots)
-
-            def mergev(vs, vl, tiny):
-                return jnp.where(is_tiny, tiny,
-                                 jnp.concatenate([vs, vl])[rank_c])
-
-            med_mag = mergev(outs_s[0], outs_l[0], tiny_mag)
-            med_dph = mergev(outs_s[1], outs_l[1], tiny_dph)
-        else:
-            def tier(sel, window):
-                t_sel = jnp.where(sel, toa_idx, sentinel)
-                e_sel = jnp.where(sel, te_idx, sentinel)
-                mm, dd, _ = pulse_stats(mag_cm, dph_cm, None, t_sel, e_sel,
-                                        window=window, t_len=t_len,
-                                        gate_slots=gate_slots,
-                                        double_buffer=_STATS_DB,
-                                        batch_tiles=_STATS_BATCH)
-                return mm, dd
-
-            s_mag, s_dph = tier(is_short, sw)
-            l_mag, l_dph = tier(is_long, w)
-            med_mag = jnp.where(is_tiny, tiny_mag,
-                                jnp.where(is_short, s_mag, l_mag))
-            med_dph = jnp.where(is_tiny, tiny_dph,
-                                jnp.where(is_short, s_dph, l_dph))
-            if use_w128:
-                s128_mag, s128_dph = tier(is_s128, 128)
-                med_mag = jnp.where(is_s128, s128_mag, med_mag)
-                med_dph = jnp.where(is_s128, s128_dph, med_dph)
-    else:
-        med_mag, med_dph, _ = pulse_stats(
-            mag_cm, dph_cm, None, toa_idx, te_idx, window=w, t_len=t_len,
-            gate_slots=(gate_slots and tier_mode != "compact"),
-            batch_tiles=_STATS_BATCH)
-
-    snr = 10.0 * jnp.log10(med_mag / noise_floor[:, None])
-    zero = jnp.zeros((), jnp.float32)
-    sl = slice(None), slice(0, max_pulses)
-    valid_s = valid[sl]
-    return PdwBatch(
-        toa_idx=jnp.where(valid_s, toa_idx[sl], -1),
-        te_idx=jnp.where(valid_s, te_idx[sl], -1),
-        pw_sec=jnp.where(valid_s,
-                         (te_idx[sl] - toa_idx[sl]).astype(jnp.float32), zero),
-        mag=jnp.where(valid_s, med_mag[sl], zero),
-        snr_db=jnp.where(valid_s, snr[sl], zero),
-        freq_offset_hz=jnp.where(valid_s, med_dph[sl] / 360.0, zero),
-        saturated=jnp.where(valid_s, sat_any[sl], False),
-        valid=valid_s,
-        count=count,
-    )
-
-
-def _extract_wideband_blocked(
-    mag: jax.Array,
-    phase_deg: jax.Array,
-    sat: jax.Array,
-    cfg: PdwConfig,
-    noise_floor: jax.Array,
-    block_len: int = 1 << 23,
-) -> PdwBatch:
-    """Wideband extraction of captures past the ``pulse_stats`` kernel's
-    2^24-sample block bound: blockwise over the time axis with the latch
-    carried by transfer-function composition and a ``max_pulse_samples``
-    right halo — the in-memory form of ``dsp.streaming``'s contract, with
-    per-pulse statistics on the Pallas kernel per block.
-
-    Bit-identical to the single-shot extractor for pulses no longer than the
-    halo (same contract as :class:`dsp.streaming.StreamingExtractor`); a
-    pulse open at capture end is never emitted (``create_pdws.m`` rule,
-    enforced with a +inf magnitude pad).
-
-    Host-sync structure: the per-block extractions and the latch-transfer
-    chain are all **dispatched first** (async), then every field is fetched
-    ONCE as a block-stacked array — one device->host round-trip per field
-    instead of one per (block, field), which matters on remote transports
-    where each sync costs ~0.4 s (a 1 s 56 Msps capture is 4 blocks).  Peak
-    device memory is still the caller-materialized full streams; captures
-    that cannot afford that belong in ``dsp.streaming``.
-    """
-    t_len = mag.shape[0]
-    halo = cfg.max_pulse_samples
-    nf = jnp.reshape(noise_floor, (1,))
-    entry = jnp.zeros((1,), bool)
-    n_blocks = (t_len + block_len - 1) // block_len
-
-    names = [f.name for f in dataclasses.fields(PdwBatch) if f.name != "count"]
-    batches = []
-    starts = []
-    for k in range(n_blocks):
-        s0 = k * block_len
-        s1 = min(s0 + block_len, t_len)
-        h1 = min(s1 + halo, t_len)
-        mag_e, ph_e, sat_e = mag[s0:h1], phase_deg[s0:h1], sat[s0:h1]
-        if h1 == t_len:  # capture ends inside this view: open pulses die
-            mag_e = jnp.concatenate([mag_e, jnp.full((1,), jnp.inf, mag_e.dtype)])
-            ph_e = jnp.concatenate([ph_e, jnp.zeros((1,), ph_e.dtype)])
-            sat_e = jnp.concatenate([sat_e, jnp.zeros((1,), bool)])
-        batch = _extract_channelized_pallas_stats(
-            mag_e[:, None], ph_e[:, None], sat_e[:, None], cfg, nf,
-            entry_active=entry, own_len=s1 - s0,
-        )
-        a, b = block_transfer(
-            mag[s0:s1][None, :], nf[:, None],
-            cfg.snr_threshold_db, cfg.trailing_threshold_db,
-        )
-        entry = jnp.where(entry, b, a)
-        batches.append(batch)
-        starts.append(s0)
-
-    # One stacked fetch per field (equal shapes: every block pads its slot
-    # axis to the same p_slots; only the `valid` mask differs).
-    stacked = {
-        n: np.asarray(jnp.stack([getattr(b, n)[0] for b in batches]))
-        for n in names
-    }
-    sel = stacked["valid"]
-    pulses = {}
-    for n in names:
-        v = stacked[n]
-        if n in ("toa_idx", "te_idx"):
-            v = v + np.asarray(starts, np.int32)[:, None]
-        pulses[n] = [v[k][sel[k]] for k in range(n_blocks)]
-
-    cat = {n: np.concatenate(pulses[n])[: cfg.max_pulses] for n in names}
-    total = len(cat["toa_idx"])
-    pad = cfg.max_pulses - total
-
-    def _pad(v, fill):
-        return jnp.asarray(np.concatenate([v, np.full(pad, fill, v.dtype)]))
-
-    fills = {"toa_idx": -1, "te_idx": -1, "valid": False, "saturated": False}
-    return PdwBatch(
-        count=jnp.int32(total),
-        **{n: _pad(cat[n], fills.get(n, 0)) for n in names},
-    )
 
 
 @functools.partial(
@@ -1218,9 +432,8 @@ def _extract_event_core(
     * saturation is any flagged sample strictly inside the pulse
       (``:336-340``); no frequency is emitted (the C++ loop measures none).
 
-    Pure XLA (no Pallas): identical code path on CPU and TPU; dense
-    compare/reduce + one contiguous block gather per (rank, quantity) —
-    nothing lowers to scalar-core gathers or scatters.  f32 accumulation
+    Dense compare/reduce + one contiguous block gather per (rank,
+    quantity), no scatters.  f32 accumulation
     (the reference accumulates ``amp`` in double; the difference is below
     0.001 dB at dwell scales).  Returns sample-unit ``pw_sec`` and zero
     ``freq_offset_hz`` like the other cores; :func:`finalize_pdws` scales.
@@ -1330,8 +543,7 @@ def extract_pdws_event_planes(
     cfg: PdwConfig,
     noise_floor: Optional[jax.Array] = None,
 ) -> PdwBatch:
-    """Complex-free twin of :func:`extract_pdws_event` (float planes in —
-    the real-TPU transport ingest)."""
+    """Complex-free twin of :func:`extract_pdws_event` (float planes in)."""
     mag = jnp.sqrt(yr * yr + yi * yi)
     sat = ((jnp.abs(yr) >= cfg.saturation_level)
            | (jnp.abs(yi) >= cfg.saturation_level))
@@ -1358,25 +570,18 @@ def extract_pdws(
     iq: jax.Array,
     cfg: PdwConfig,
     noise_floor: Optional[jax.Array] = None,
-    stats: str = "auto",
 ) -> PdwBatch:
     """Wideband PDW extraction from a 1-D complex capture.
 
     ``pw_sec`` / ``freq_offset_hz`` in the returned batch are in units of
     samples and cycles-per-sample respectively; :func:`finalize_pdws` scales
     them by the true ``fs`` on the host (keeps the jitted core
-    rate-agnostic).  ``stats`` as in :func:`extract_pdws_channelized_streams`
-    — off-CPU the per-pulse medians run in the ``pulse_stats`` Pallas
-    kernel (wideband is its one-channel case); captures past the kernel's
-    2^24-sample block bound route automatically through blockwise
-    extraction with the latch carried across blocks
-    (:func:`_extract_wideband_blocked`).
+    rate-agnostic).
     """
     mag, phase_deg, sat = _prep_streams(iq, cfg.saturation_level)
     if noise_floor is None:
         noise_floor = medians.median(mag)
-    return _extract_wideband_from_streams(
-        mag, phase_deg, sat, cfg, noise_floor, stats=stats)
+    return _extract_wideband_from_streams(mag, phase_deg, sat, cfg, noise_floor)
 
 
 def extract_pdws_channelized(
@@ -1391,17 +596,7 @@ def extract_pdws_channelized(
     channel (vmapped).  Returned batch arrays have shape (M, max_pulses).
     """
     mag, phase_deg, sat = _prep_streams(chan_iq, cfg.saturation_level)
-    if noise_floor is None:
-        noise_floor = medians.median(mag, axis=0)
-    core = functools.partial(
-        extract_pdws_core,
-        snr_threshold_db=cfg.snr_threshold_db,
-        trailing_threshold_db=cfg.trailing_threshold_db,
-        saturation_level=cfg.saturation_level,
-        max_pulses=cfg.max_pulses,
-        max_pulse_samples=cfg.max_pulse_samples,
-    )
-    return jax.vmap(core, in_axes=(1, 1, 1, 0))(mag, phase_deg, sat, noise_floor)
+    return extract_pdws_channelized_streams(mag, phase_deg, sat, cfg, noise_floor)
 
 
 def finalize_pdws(

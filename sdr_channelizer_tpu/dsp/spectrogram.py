@@ -5,17 +5,17 @@ Reference configuration: ``stft(iq, fs, 'Window', hamming(768),
 magnitude power, frequency axis centered on the tuned frequency
 (``y = (f + fc) MHz``), one PNG per capture.
 
-Zero overlap means the STFT is a plain reshape -> window -> DFT.  On TPU
-the DFT runs as a windowed matmul on the MXU (the window is folded into
-the DFT matrix; plain XLA, no Pallas kernel — XLA already fuses the
-reshape + dequant + matmul chain here), and :func:`stft_power_packed`
-takes the raw recorder payload (packed int16/int8 I/Q pairs) so the
-dequantization happens on device, not on the host — the same packed
-ingest contract as the PDW pipeline (``models/pipeline.py:extract_fused``).
+Zero overlap means the STFT is a plain reshape -> window -> DFT: an FFT,
+or a windowed matmul with the window folded into the DFT matrix
+(``method``).  :func:`stft_power_packed` takes the
+raw recorder payload (packed int16/int8 I/Q pairs) so the dequantization
+happens on device, not on the host — the same packed ingest contract as
+the PDW pipeline (``models/pipeline.py:extract_fused``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import jax
@@ -23,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from sdr_channelizer_tpu.config import SpectrogramConfig
+from sdr_channelizer_tpu.ops.ingest import unpack_planes
 
 
 def hamming(length: int, dtype=np.float32) -> np.ndarray:
@@ -36,23 +37,21 @@ def stft_power(
     iq: jax.Array,
     window: Optional[jax.Array] = None,
     cfg: SpectrogramConfig = SpectrogramConfig(),
-    method: str = "auto",
+    method: str = "fft",
 ) -> jax.Array:
     """Squared-magnitude STFT with zero overlap.
 
     Returns ``(num_frames, window_length)`` float32 power, frequency axis in
     FFT-shifted (ascending, DC-centered) order to match the reference's
     'centered' display.  ``method`` follows
-    :func:`dsp.channelizer.resolve_method`: the TPU path computes the DFT as
-    a windowed matmul on the MXU (window folded into the DFT matrix).
+    :func:`dsp.channelizer.extract_channels`; ``"dft"`` computes the DFT as
+    a windowed matmul (window folded into the DFT matrix).
     """
-    from sdr_channelizer_tpu.dsp.channelizer import resolve_method
-
     w = jnp.asarray(hamming(cfg.window_length) if window is None else window)
     length = w.shape[0]
     frames = iq.shape[-1] // length
     x = iq[..., : frames * length].reshape(*iq.shape[:-1], frames, length)
-    if resolve_method(method) == "dft":
+    if method == "dft":
         return _windowed_dft_power_planes(
             jnp.real(x).astype(jnp.float32), jnp.imag(x).astype(jnp.float32),
             length, np.asarray(w))
@@ -64,15 +63,15 @@ def _windowed_dft_power_planes(
     xr: jax.Array, xi: jax.Array, length: int, window: np.ndarray
 ) -> jax.Array:
     """(frames, L) planes -> squared-magnitude DFT power, window folded into
-    the DFT matrix (four real MXU matmuls; complex-free — the TPU transport
-    cannot lower FFTs or complex matmuls)."""
+    the DFT matrix (four real matmuls at ``precision=HIGHEST``)."""
     from sdr_channelizer_tpu.dsp.channelizer import dft_matrix
 
     wm = np.asarray(dft_matrix(length, shifted=True)) * window[:, None]
     wr = jnp.asarray(np.real(wm).astype(np.float32))
     wi = jnp.asarray(np.imag(wm).astype(np.float32))
-    sr = xr @ wr - xi @ wi
-    si = xr @ wi + xi @ wr
+    mm = functools.partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
+    sr = mm(xr, wr) - mm(xi, wi)
+    si = mm(xr, wi) + mm(xi, wr)
     return (sr * sr + si * si).astype(jnp.float32)
 
 
@@ -95,14 +94,7 @@ def stft_power_packed(
     length = w.shape[0]
     frames = xq.shape[-1] // length
     x = xq[..., : frames * length].reshape(*xq.shape[:-1], frames, length)
-    scale = jnp.float32(2.0 ** -(bit_width - 1))
-    if x.dtype == jnp.int32:  # int16 I/Q pair: low half = I, high half = Q
-        xr = ((x << 16) >> 16).astype(jnp.float32) * scale
-        xi = (x >> 16).astype(jnp.float32) * scale
-    else:  # int16-packed int8 pair: low byte = I, high byte = Q
-        x32 = x.astype(jnp.int32)
-        xr = ((x32 << 24) >> 24).astype(jnp.float32) * scale
-        xi = (x32 >> 8).astype(jnp.float32) * scale
+    xr, xi = unpack_planes(x, bit_width)
     return _windowed_dft_power_planes(xr, xi, length, w)
 
 

@@ -64,35 +64,6 @@ def _u32_to_f32_np(u: np.ndarray) -> np.ndarray:
     return raw.view(np.float32)
 
 
-@functools.partial(jax.jit, static_argnames=("shift",))
-def _nf_count_le(mag: jax.Array, prefix_i32: jax.Array, shift: int):
-    """Per-channel ``count(key <= cut)`` for the 15 cut points of one
-    4-bit radix level (``ops.medians._kth_smallest_key_multibit``
-    semantics, absolute-range compares so no live mask is carried).
-    ``mag`` is a device-resident (T, M) block; returns (M, 15) f32 counts
-    — the ONLY device->host traffic of the streamed noise-floor counting
-    pass (~4 KB vs the ~29 MB/block magnitude fetch it replaces,
-    VERDICT r4 next #5)."""
-    keys = medians._sortable_u32(mag)  # (T, M)
-    pref = jax.lax.bitcast_convert_type(prefix_i32, jnp.uint32)  # (M,)
-    j = jnp.arange(1, 16, dtype=jnp.uint32)
-    cuts = (pref[:, None] | (j[None, :] << jnp.uint32(shift))) - jnp.uint32(1)
-    below = keys[:, :, None] <= cuts[None, :, :]  # (T, M, 15), fused reduce
-    return jnp.sum(below, axis=0).astype(jnp.float32)
-
-
-@jax.jit
-def _nf_finish(mag: jax.Array, prefix_i32: jax.Array):
-    """Per-channel ``(count(key <= pref), min value strictly above pref)``
-    — the hi-statistic pass (``ops.medians._masked_median_select`` finish
-    trick) as (M,) f32 pairs."""
-    keys = medians._sortable_u32(mag)
-    pref = jax.lax.bitcast_convert_type(prefix_i32, jnp.uint32)[None, :]
-    cnt_le = jnp.sum(keys <= pref, axis=0).astype(jnp.float32)
-    above = jnp.where(keys > pref, mag, jnp.inf)
-    return cnt_le, jnp.min(above, axis=0)
-
-
 @dataclasses.dataclass
 class Segment:
     """A maximal run of time-contiguous dwell files."""
@@ -146,39 +117,6 @@ class Segment:
         if not out:
             return np.zeros(0, np.complex64)
         return out[0] if len(out) == 1 else np.concatenate(out)
-
-    def read_samples_raw(self, start: int, count: int) -> np.ndarray:
-        """Raw-payload twin of :meth:`read_samples`: the (count, 2)
-        int8/int16 samples straight off the mmap, no normalization — the
-        packed-ingest streaming path ships these bytes to the device
-        untouched (dequant in-kernel).  All files in a segment must share
-        one payload dtype."""
-        out = []
-        pos = 0
-        remaining = count
-        dtype = None
-        for path, hdr in zip(self.paths, self.headers):
-            n = hdr.num_samples
-            if remaining <= 0:
-                break
-            if pos + n > start:
-                lo = max(start - pos, 0)
-                hi = min(n, lo + remaining)
-                _, samples = iqpacket.read_iq(path)
-                part = np.asarray(samples[lo:hi])
-                if dtype is None:
-                    dtype = part.dtype
-                elif part.dtype != dtype:
-                    raise ValueError(
-                        f"mixed payload dtypes in segment: {dtype} vs "
-                        f"{part.dtype} ({path})")
-                out.append(part)
-                remaining -= hi - lo
-            pos += n
-        if not out:
-            return np.zeros((0, 2), np.int16)
-        return out[0] if len(out) == 1 else np.concatenate(out)
-
 
 @dataclasses.dataclass
 class CaptureSet:
@@ -305,8 +243,7 @@ class StreamingExtractor:
     def _noise_floor_from_mag_blocks(self, make_mag_blocks) -> np.ndarray:
         """Exact per-channel median from an iterator factory of host (T, M)
         float32 magnitude blocks — the two counting passes of
-        :meth:`measure_noise_floor`, source-agnostic (the fused packed path
-        feeds it kernel-emitted magnitudes)."""
+        :meth:`measure_noise_floor`."""
         bins = 1 << 16
         hist_hi = None
         n_total = 0
@@ -355,76 +292,6 @@ class StreamingExtractor:
                 vals[c, j] = _u32_to_f32_np(np.uint32((b << 16) | low))[0]
         return np.float32(0.5) * (vals[:, 0] + vals[:, 1])
 
-    # Device-resident magnitude budget of the counts-only noise-floor path
-    # (bytes).  Streams beyond it fall back to the host-histogram path —
-    # still exact, just d2h-heavy.  2 GB holds ~128 s of 56 Msps capture.
-    _NF_RESIDENT_CAP_BYTES = 2 << 30
-
-    def _noise_floor_device(self, make_mag_blocks_dev,
-                            est_bytes: Optional[int] = None
-                            ) -> Optional[np.ndarray]:
-        """Exact per-channel median with ON-DEVICE count reductions.
-
-        The host-histogram form (:meth:`_noise_floor_from_mag_blocks`)
-        fetches every block's full (T, M) magnitude (~29 MB/block at the
-        bench shape) twice; this form keeps the magnitudes device-resident
-        and runs the ``ops.medians`` 4-bit value-space radix descent over
-        them — 8 counting levels + 1 hi-statistic pass, each fetching only
-        (M, 15) / (M,) f32 count vectors (~4 KB per block-level, a >1000x
-        d2h reduction; VERDICT r4 next #5).  Identical order statistics
-        and mean-of-two-middles, asserted against the host path by
-        tests/test_streaming.py.
-
-        Returns None when the stream exceeds the device-residency budget
-        (the caller falls back to the host-histogram path).  Pass
-        ``est_bytes`` (total f32 magnitude bytes, computable from the
-        segment shape) so over-budget streams decline BEFORE any device
-        work — without it an over-cap stream would channelize up to the
-        cap and then be re-channelized by the fallback.
-        """
-        if est_bytes is not None and est_bytes > self._NF_RESIDENT_CAP_BYTES:
-            return None
-        mags = []
-        total_bytes = 0
-        for b in make_mag_blocks_dev():
-            total_bytes += int(np.prod(b.shape)) * 4
-            if total_bytes > self._NF_RESIDENT_CAP_BYTES:
-                return None
-            mags.append(b)
-        if not mags:
-            raise ValueError("empty sample stream: no samples to measure")
-        n_total = sum(int(b.shape[0]) for b in mags)
-        m = int(mags[0].shape[1])
-        k_lo, k_hi = max((n_total - 1) // 2, 0), n_total // 2
-
-        prefix = np.zeros(m, np.uint32)
-        d2h = 0
-        for level in range(8):
-            shift = 28 - 4 * level
-            pref_dev = jnp.asarray(prefix.view(np.int32))
-            # Dispatch every block's count, then fetch once per level.
-            cnts = [_nf_count_le(b, pref_dev, shift) for b in mags]
-            tot = np.zeros((m, 15), np.float64)
-            for c in cnts:
-                tot += np.asarray(c, np.float64)
-                d2h += m * 15 * 4
-            nib = np.sum(tot <= float(k_lo), axis=1).astype(np.uint32)
-            prefix |= nib << np.uint32(shift)
-        lo = _u32_to_f32_np(prefix)
-
-        pref_dev = jnp.asarray(prefix.view(np.int32))
-        outs = [_nf_finish(b, pref_dev) for b in mags]
-        cnt_le = np.zeros(m, np.float64)
-        mins = np.full(m, np.inf, np.float32)
-        for c, mn in outs:
-            cnt_le += np.asarray(c, np.float64)
-            mins = np.minimum(mins, np.asarray(mn))
-            d2h += m * 8
-        hi = np.where(cnt_le > float(k_hi), lo, mins)
-        self.counters.add("nf_device_count_d2h_bytes", d2h)
-        return (np.float32(0.5) * (lo + hi.astype(np.float32))).astype(
-            np.float32)
-
     def measure_noise_floor(self, make_sample_blocks) -> np.ndarray:
         """Exact per-channel median magnitude over the whole stream in
         O(block) memory (pass 1 of the exact two-pass mode).
@@ -445,9 +312,7 @@ class StreamingExtractor:
         """
         def mag_blocks():
             for y in self._channelized_blocks(make_sample_blocks()):
-                # |y| on device, f32 fetch (complex d2h is unimplemented
-                # on some TPU transports).
-                yield np.asarray(jnp.abs(y))
+                yield np.asarray(jnp.abs(y))  # |y| on device, f32 fetch
 
         return self._noise_floor_from_mag_blocks(mag_blocks)
 
@@ -617,14 +482,11 @@ class StreamingExtractor:
                     if hist_frames:
                         hist = hist.at[p - hist_frames:].set(raw[:hist_frames])
                     from sdr_channelizer_tpu.dsp.channelizer import (
-                        _fir_branches, dft_matrix, resolve_method,
+                        _fir_branches, extract_channels,
                     )
                     u = _fir_branches(jnp.asarray(raw[hist_frames:]), hist,
                                       jnp.asarray(self.channelizer.taps_rev))
-                    if resolve_method("auto") == "dft":
-                        y = u @ jnp.asarray(dft_matrix(m, shifted=True))
-                    else:
-                        y = jnp.fft.fftshift(jnp.fft.fft(u, axis=-1), axes=-1)
+                    y = extract_channels(u, m)
                 mag, ph, sat = pdwmod._prep_streams(y, cfg.saturation_level)
                 if h_k < 1:  # capture ends at this block: +inf pad
                     mag = jnp.concatenate([mag, jnp.full((1, m), jnp.inf, mag.dtype)])
@@ -632,166 +494,6 @@ class StreamingExtractor:
                     sat = jnp.concatenate([sat, jnp.zeros((1, m), bool)])
                 batch, a_blk, b_blk = self._detect_block(
                     mag, ph, sat, nf, entry, own_len=t_k
-                )
-                batch = jax.tree.map(np.asarray, batch)
-                if path:
-                    np.savez(
-                        path, a=np.asarray(a_blk), b=np.asarray(b_blk),
-                        **{n: getattr(batch, n) for n in field_names},
-                    )
-            entry = jnp.where(entry, jnp.asarray(b_blk), jnp.asarray(a_blk))
-            results.append(batch)
-            offsets.append(f0)
-        return self._finalize(results, offsets, fs, fc, t0)
-
-    def extract_segment_fused(
-        self,
-        segment: Segment,
-        fc: float = 0.0,
-        noise_floor: Union[str, np.ndarray] = "two_pass",
-        checkpoint_dir: Optional[str] = None,
-    ) -> dict:
-        """Packed-ingest fused-kernel streaming extraction — the TPU fast
-        path for captures past one device buffer (>2^24 samples and beyond).
-
-        Same block/checkpoint/latch-chaining contract as
-        :meth:`extract_segment`, but each block's raw int16/int8 payload
-        ships to the device untouched and runs through the fused Pallas
-        channelize + detection-streams kernel (overlap-save FIR history
-        from the previous block's raw tail), with per-pulse statistics on
-        the ``pulse_stats`` kernel — no complex arithmetic anywhere, so the
-        graph lowers on TPU transports without complex support, at the
-        single-shot headline path's throughput per block.
-
-        Output equals the single-shot fused extraction
-        (``models.ChannelizerPipeline.extract_fused``) pulse-for-pulse for
-        pulses within the halo contract (NOT the FFT-oracle path — the
-        fused kernel computes the DFT as matmuls; values differ from FFT
-        rounding at the last ulp).  Checkpoints are one ``.npz`` per block
-        (separate directory from :meth:`extract_segment` runs — the block
-        payloads differ).
-        """
-        import os
-
-        from sdr_channelizer_tpu.ops.pallas.channelizer_kernel import (
-            pallas_channelize_streams_packed_cm,
-        )
-
-        if self.channelizer is None:
-            raise ValueError("extract_segment_fused requires a channelizer "
-                             "(wideband streaming uses extract_segment)")
-        chan = self.channelizer
-        hdr0 = segment.headers[0]
-        fs = hdr0.sample_rate_sps
-        bit_width = hdr0.bit_width
-        t0 = segment.start_time
-        m = chan.num_bands
-        p = chan.taps_per_band
-        cfg = self.pdw_cfg
-        halo = self._halo
-        block = self.block_frames
-        n_frames = segment.num_samples // m
-        n_blocks = max((n_frames + block - 1) // block, 1)
-        if not pdwmod._pallas_stats_ok(block + halo, cfg):
-            raise ValueError(
-                f"block_frames+halo = {block + halo} does not fit the "
-                f"pulse_stats kernel (window {cfg.max_pulse_samples}); "
-                f"adjust block_frames or max_pulse_samples")
-
-        def packed_view(raw):
-            raw = np.ascontiguousarray(raw)
-            return jnp.asarray(
-                raw.view(np.int32 if raw.dtype == np.int16 else np.int16
-                         ).ravel())
-
-        def read_block(f0, t_k, h_k):
-            """(history_packed | None, xq_packed) covering
-            [f0 - hist, f0 + t_k + h_k) frames."""
-            hist_frames = min(p - 1, f0)
-            raw = segment.read_samples_raw(
-                (f0 - hist_frames) * m, (hist_frames + t_k + h_k) * m)
-            hist = (packed_view(raw[: hist_frames * m])
-                    if hist_frames == p - 1 else None)
-            if hist is None and f0 > 0:
-                # mid-capture block with short history (f0 < P-1): pad left
-                pad = np.zeros(((p - 1 - hist_frames) * m, raw.shape[1]),
-                               raw.dtype)
-                hist = packed_view(np.concatenate([pad, raw[: hist_frames * m]]))
-            return hist, packed_view(raw[hist_frames * m:])
-
-        ck = checkpoint_dir
-        if ck:
-            os.makedirs(ck, exist_ok=True)
-
-        def _ck_path(k):
-            return os.path.join(ck, f"block_{k:06d}.npz") if ck else None
-
-        if isinstance(noise_floor, str) and noise_floor == "two_pass":
-            nf_path = os.path.join(ck, "noise_floor.npz") if ck else None
-            if nf_path and os.path.exists(nf_path):
-                nf = jnp.asarray(np.load(nf_path)["nf"])
-            else:
-                def dev_mag_blocks():
-                    for k in range(n_blocks):
-                        f0 = k * block
-                        t_k = min(block, n_frames - f0)
-                        hist, xq = read_block(f0, t_k, 0)
-                        mag, _, _, _ = pallas_channelize_streams_packed_cm(
-                            xq, chan.taps_rev, bit_width=bit_width,
-                            sat_level=cfg.saturation_level, history=hist)
-                        yield mag[:t_k]
-
-                def mag_blocks():
-                    for b in dev_mag_blocks():
-                        yield np.asarray(b)
-
-                # Counts-only device reduction (falls back to the host
-                # histogram past the residency cap, or on CPU backends
-                # where the host path is the fast one).
-                nf_arr = (self._noise_floor_device(
-                              dev_mag_blocks, est_bytes=n_frames * m * 4)
-                          if medians.use_sort_free() else None)
-                if nf_arr is None:
-                    nf_arr = self._noise_floor_from_mag_blocks(mag_blocks)
-                nf = jnp.asarray(nf_arr)
-                if nf_path:
-                    np.savez(nf_path, nf=np.asarray(nf))
-        elif isinstance(noise_floor, str):
-            raise ValueError(f"unsupported noise_floor mode {noise_floor!r}")
-        else:
-            nf = jnp.asarray(noise_floor)
-
-        field_names = ("toa_idx", "te_idx", "pw_sec", "mag", "snr_db",
-                       "freq_offset_hz", "saturated", "valid", "count")
-        results, offsets = [], []
-        entry = jnp.zeros((m,), bool)
-        for k in range(n_blocks):
-            f0 = k * block
-            t_k = min(block, n_frames - f0)
-            path = _ck_path(k)
-            self.counters.add("blocks_processed")
-            self.counters.add("samples_ingested", t_k * m)
-            if path and os.path.exists(path):
-                z = np.load(path)
-                batch = pdwmod.PdwBatch(**{n: z[n] for n in field_names})
-                a_blk, b_blk = jnp.asarray(z["a"]), jnp.asarray(z["b"])
-                self.counters.add("blocks_resumed_from_checkpoint")
-            else:
-                h_k = min(halo, n_frames - f0 - t_k)
-                hist, xq = read_block(f0, t_k, h_k)
-                mag, mag_cm, dph_cm, sat_cm = \
-                    pallas_channelize_streams_packed_cm(
-                        xq, chan.taps_rev, bit_width=bit_width,
-                        sat_level=cfg.saturation_level, history=hist)
-                mag = mag[: t_k + h_k]
-                batch = pdwmod._extract_channelized_pallas_stats(
-                    mag, None, None, cfg, nf,
-                    entry_active=entry, own_len=t_k,
-                    cm_streams=(mag_cm, dph_cm, sat_cm),
-                )
-                a_blk, b_blk = pdwmod.block_transfer(
-                    mag[:t_k].T, nf[:, None],
-                    cfg.snr_threshold_db, cfg.trailing_threshold_db,
                 )
                 batch = jax.tree.map(np.asarray, batch)
                 if path:

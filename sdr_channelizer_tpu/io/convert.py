@@ -299,9 +299,9 @@ def load_capture_raw(path) -> Tuple[Optional[np.ndarray], int, Optional[dict]]:
     the container has one: ``(samples (N, 2) int8/int16, bit_width,
     metadata)``, or ``(None, 0, None)`` for float containers.
 
-    The raw payload feeds the packed-ingest fused pipeline
+    The raw payload feeds the packed-ingest pipeline
     (``models.ChannelizerPipeline.extract_fused``) — the on-disk bytes go
-    to the device untouched and the dequant happens in-kernel, which
+    to the device untouched and the dequant happens there, which
     halves/quarters the host->device traffic of the complex path.
     """
     p = os.fspath(path)

@@ -19,7 +19,7 @@ import numpy as np
 
 from sdr_channelizer_tpu.config import PdwConfig
 from sdr_channelizer_tpu.dsp import pdw as pdwmod
-from sdr_channelizer_tpu.ops import medians
+from sdr_channelizer_tpu.ops import ingest, medians
 from sdr_channelizer_tpu.dsp.channelizer import Channelizer, channelize
 from sdr_channelizer_tpu.dsp.pdw import PdwBatch
 
@@ -55,13 +55,20 @@ class ChannelizerPipeline:
         batch = pdwmod.extract_pdws_channelized(y, self.pdw_cfg, noise_floor=nf)
         return y, nf, batch
 
+    def forward_reference(self, x: jax.Array) -> Tuple[jax.Array, PdwBatch]:
+        """The plain reference of every device route: the graph of
+        :meth:`forward` with its one platform-dependent choice pinned —
+        FFT channel extraction and sort medians whatever the backend.
+        Capture -> (noise_floor, PdwBatch)."""
+        nf, _, batch = self._forward_streams(x, nf_method="sort")
+        return nf, batch
+
     def forward_planes(
         self, xr: jax.Array, xi: jax.Array
     ) -> Tuple[jax.Array, jax.Array, jax.Array, PdwBatch]:
         """Complex-free forward step: float32 sample planes in, channelized
         planes + noise floor + PDWs out.  Same numbers as :meth:`forward`
-        with the DFT extraction; exists for TPU transports that cannot
-        lower complex arithmetic."""
+        with the DFT extraction."""
         from sdr_channelizer_tpu.dsp.channelizer import channelize_planes
 
         yr, yi = channelize_planes(xr, xi, self.channelizer)
@@ -74,123 +81,52 @@ class ChannelizerPipeline:
         )
         return yr, yi, nf, batch
 
-    def forward_fused(
-        self, xr: jax.Array, xi: jax.Array, bit_width: int = 0,
-        route: str = "auto",
+    def _forward_streams(
+        self, x: jax.Array, nf_method: Optional[str] = None
     ) -> Tuple[jax.Array, jax.Array, PdwBatch]:
-        """Fused-kernel forward step: raw int16 (or f32) planes ->
-        (noise_floor, mag, PdwBatch) with the dequant + channelizer + stream
-        prep in one Pallas pass (``ops/pallas/channelizer_kernel.py``).
-
-        ``route``: ``"auto"`` (cm2 when the capture fits the pulse-stats
-        kernel), ``"cm2"`` (v2 channel-major tail — see
-        ``dsp/pdw.py:_extract_channelized_cm2``; the middle return value is
-        then the (128k, T_pad) channel-major magnitude, not time-major),
-        ``"cm"`` (round-3 channel-major tail), ``"flat"`` (time-major
-        streams + per-backend stats routing).
-        """
-        from sdr_channelizer_tpu.ops.pallas.channelizer_kernel import (
-            pallas_channelize_streams,
-            pallas_channelize_streams_cm,
-            pallas_channelize_streams_cm2,
-        )
-
-        m = self.channelizer.num_bands
-        t_len = xr.shape[-1] // m
-        ok = pdwmod._pallas_stats_ok(t_len, self.pdw_cfg)
-        if route == "auto":
-            route = "cm2" if ok else "flat"
-        if route.startswith("cm2") and ok:
-            mag_cm, dph_cm, satcs_cm = pallas_channelize_streams_cm2(
-                xr, xi, self.channelizer.taps_rev, bit_width=bit_width,
-                sat_level=self.pdw_cfg.saturation_level,
-            )
-            nf = pdwmod.noise_floor_cm(mag_cm, m, t_len)
-            batch = pdwmod._extract_channelized_cm2(
-                mag_cm, dph_cm, satcs_cm, self.pdw_cfg, nf, t_len, m,
-                tier_mode="compact" if route == "cm2c" else "grid",
-                gate_slots=route == "cm2g")
-            return nf, mag_cm, batch
-        if route == "cm" and ok:
-            mag, mag_cm, dph_cm, sat_cm = pallas_channelize_streams_cm(
-                xr, xi, self.channelizer.taps_rev, bit_width=bit_width,
-                sat_level=self.pdw_cfg.saturation_level,
-            )
-            nf = medians.median(mag, axis=0)
-            batch = pdwmod.extract_pdws_channelized_streams_cm(
-                mag, mag_cm, dph_cm, sat_cm, self.pdw_cfg, noise_floor=nf
-            )
-            return nf, mag, batch
-        mag, ph, sat = pallas_channelize_streams(
-            xr, xi, self.channelizer.taps_rev, bit_width=bit_width,
-            sat_level=self.pdw_cfg.saturation_level,
-        )
-        nf = medians.median(mag, axis=0)
+        """Dequantized complex capture -> (noise_floor, mag, PdwBatch): the
+        graph of :meth:`forward`, returning the (T, M) magnitude stream in
+        place of the complex spectrum.  ``nf_method`` pins the noise
+        floor's median method (None: ``ops.backend``)."""
+        with jax.named_scope("channelize"):
+            y = channelize(x, self.channelizer, method="fft")
+        with jax.named_scope("streams"):
+            mag, ph, sat = pdwmod._prep_streams(y, self.pdw_cfg.saturation_level)
+        with jax.named_scope("noise_floor"):
+            nf = medians.median(mag, axis=0, method=nf_method)
         batch = pdwmod.extract_pdws_channelized_streams(
-            mag, ph, sat > 0.5, self.pdw_cfg, noise_floor=nf
-        )
+            mag, ph, sat, self.pdw_cfg, noise_floor=nf)
         return nf, mag, batch
+
+    def forward_fused(
+        self, xr: jax.Array, xi: jax.Array, bit_width: int = 0
+    ) -> Tuple[jax.Array, jax.Array, PdwBatch]:
+        """I/Q sample planes -> (noise_floor, mag, PdwBatch).  ``xr``/``xi``
+        are raw integer planes (dequantized on the device by
+        ``2^-(bit_width-1)``) or, with ``bit_width=0``, float planes."""
+        with jax.named_scope("ingest"):
+            x = ingest.planes_complex(xr, xi, bit_width)
+        return self._forward_streams(x)
 
     def forward_packed(
-        self, xq: jax.Array, bit_width: int, route: str = "auto"
+        self, xq: jax.Array, bit_width: int
     ) -> Tuple[jax.Array, jax.Array, PdwBatch]:
         """Like :meth:`forward_fused` but on the raw recorder payload:
-        ``xq`` is the (N, 2) int16 I/Q buffer viewed as one int32 plane —
-        on-disk bytes straight to the device, deinterleave + dequant
-        in-kernel.  When the capture fits the pulse-stats kernel, the
-        channelizer kernel emits the channel-major detection streams
-        directly (no separate transpose pass).  ``route`` as in
-        :meth:`forward_fused`."""
-        from sdr_channelizer_tpu.ops.pallas.channelizer_kernel import (
-            pallas_channelize_streams_packed,
-            pallas_channelize_streams_packed_cm,
-            pallas_channelize_streams_packed_cm2,
-        )
-
-        m = self.channelizer.num_bands
-        t_len = xq.shape[-1] // m
-        ok = pdwmod._pallas_stats_ok(t_len, self.pdw_cfg)
-        if route == "auto":
-            route = "cm2" if ok else "flat"
-        if route.startswith("cm2") and ok:
-            mag_cm, dph_cm, satcs_cm = pallas_channelize_streams_packed_cm2(
-                xq, self.channelizer.taps_rev, bit_width=bit_width,
-                sat_level=self.pdw_cfg.saturation_level,
-            )
-            nf = pdwmod.noise_floor_cm(mag_cm, m, t_len)
-            batch = pdwmod._extract_channelized_cm2(
-                mag_cm, dph_cm, satcs_cm, self.pdw_cfg, nf, t_len, m,
-                tier_mode="compact" if route == "cm2c" else "grid",
-                gate_slots=route == "cm2g")
-            return nf, mag_cm, batch
-        if route == "cm" and ok:
-            mag, mag_cm, dph_cm, sat_cm = pallas_channelize_streams_packed_cm(
-                xq, self.channelizer.taps_rev, bit_width=bit_width,
-                sat_level=self.pdw_cfg.saturation_level,
-            )
-            nf = medians.median(mag, axis=0)
-            batch = pdwmod.extract_pdws_channelized_streams_cm(
-                mag, mag_cm, dph_cm, sat_cm, self.pdw_cfg, noise_floor=nf
-            )
-            return nf, mag, batch
-        mag, ph, sat = pallas_channelize_streams_packed(
-            xq, self.channelizer.taps_rev, bit_width=bit_width,
-            sat_level=self.pdw_cfg.saturation_level,
-        )
-        nf = medians.median(mag, axis=0)
-        batch = pdwmod.extract_pdws_channelized_streams(
-            mag, ph, sat > 0.5, self.pdw_cfg, noise_floor=nf
-        )
-        return nf, mag, batch
+        ``xq`` is the (N, 2) int16 I/Q buffer viewed as one int32 plane (or
+        an int8 buffer viewed as int16) — on-disk bytes straight to the
+        device, unpacked and dequantized there (``ops.ingest``)."""
+        with jax.named_scope("ingest"):
+            x = ingest.unpack_complex(xq, bit_width)
+        return self._forward_streams(x)
 
     def __post_init__(self):
         self._jit_forward = jax.jit(self.forward)
         self._jit_forward_planes = jax.jit(self.forward_planes)
         self._jit_forward_fused = jax.jit(
-            self.forward_fused, static_argnames=("bit_width", "route")
+            self.forward_fused, static_argnames=("bit_width",)
         )
         self._jit_forward_packed = jax.jit(
-            self.forward_packed, static_argnames=("bit_width", "route")
+            self.forward_packed, static_argnames=("bit_width",)
         )
 
     def step(self, x: jax.Array) -> Tuple[jax.Array, jax.Array, PdwBatch]:
@@ -202,6 +138,19 @@ class ChannelizerPipeline:
     def step_fused(self, xr, xi, bit_width: int = 0):
         return self._jit_forward_fused(xr, xi, bit_width=bit_width)
 
+    def step_packed(self, xq, bit_width: int):
+        return self._jit_forward_packed(xq, bit_width=bit_width)
+
+    def _finalize(self, batch: PdwBatch, fs: float, fc: float,
+                  sample_start_time: float) -> dict:
+        return pdwmod.finalize_pdws(
+            batch,
+            fs=fs / self.channelizer.num_bands,
+            fc=fc,
+            sample_start_time=sample_start_time,
+            bin_offsets_hz=self.channelizer.center_frequencies(fs),
+        )
+
     def extract_fused(
         self,
         samples: np.ndarray,
@@ -210,30 +159,20 @@ class ChannelizerPipeline:
         fc: float = 0.0,
         sample_start_time: float = 0.0,
     ) -> dict:
-        """Raw (N, 2) payload -> host PDW dict via the fused kernel.
+        """Raw (N, 2) payload -> host PDW dict.
 
         int16 payloads go as the packed int32 plane and int8 payloads as
         the packed int16 plane (zero-copy views of the on-disk bytes);
         float payloads go as planes."""
         samples = np.ascontiguousarray(samples)
-        if samples.dtype == np.int16:
-            xq = samples.view(np.int32).ravel()
-            _, _, batch = self._jit_forward_packed(xq, bit_width=bit_width)
-        elif samples.dtype == np.int8:
-            xq = samples.view(np.int16).ravel()
-            _, _, batch = self._jit_forward_packed(xq, bit_width=bit_width)
+        if samples.dtype in (np.int16, np.int8):
+            _, _, batch = self.step_packed(ingest.packed_view(samples),
+                                           bit_width=bit_width)
         else:
             xr = np.ascontiguousarray(samples[:, 0])
             xi = np.ascontiguousarray(samples[:, 1])
             _, _, batch = self.step_fused(xr, xi, bit_width=bit_width)
-        m = self.channelizer.num_bands
-        return pdwmod.finalize_pdws(
-            batch,
-            fs=fs / m,
-            fc=fc,
-            sample_start_time=sample_start_time,
-            bin_offsets_hz=self.channelizer.center_frequencies(fs),
-        )
+        return self._finalize(batch, fs, fc, sample_start_time)
 
     def extract_planes(
         self,
@@ -247,14 +186,7 @@ class ChannelizerPipeline:
         xr = np.ascontiguousarray(np.real(iq), np.float32)
         xi = np.ascontiguousarray(np.imag(iq), np.float32)
         _, _, _, batch = self.step_planes(xr, xi)
-        m = self.channelizer.num_bands
-        return pdwmod.finalize_pdws(
-            batch,
-            fs=fs / m,
-            fc=fc,
-            sample_start_time=sample_start_time,
-            bin_offsets_hz=self.channelizer.center_frequencies(fs),
-        )
+        return self._finalize(batch, fs, fc, sample_start_time)
 
     def extract(
         self,
@@ -264,36 +196,9 @@ class ChannelizerPipeline:
         sample_start_time: float = 0.0,
     ) -> dict:
         """Capture -> host PDW dict (absolute TOAs in epoch seconds, absolute
-        frequencies with per-bin offsets).
-
-        On non-CPU backends this routes through the fused complex-free
-        pipeline (f32 sample planes into the Pallas channelize-streams
-        kernel — some TPU transports cannot lower complex matmuls or
-        transfer complex results, and the fused kernel reads the capture
-        from HBM once); on CPU it uses the complex FFT oracle path.
-        Results are identical up to 1-ulp scalar rounding.
-        """
-        try:
-            platform = jax.devices()[0].platform
-        except RuntimeError:
-            platform = "cpu"
-        if platform != "cpu":
-            iq = np.asarray(x)
-            samples = np.stack(
-                [np.real(iq), np.imag(iq)], -1).astype(np.float32)
-            return self.extract_fused(
-                samples, bit_width=0, fs=fs, fc=fc,
-                sample_start_time=sample_start_time,
-            )
+        frequencies with per-bin offsets)."""
         _, _, batch = self.step(x)
-        m = self.channelizer.num_bands
-        return pdwmod.finalize_pdws(
-            batch,
-            fs=fs / m,
-            fc=fc,
-            sample_start_time=sample_start_time,
-            bin_offsets_hz=self.channelizer.center_frequencies(fs),
-        )
+        return self._finalize(batch, fs, fc, sample_start_time)
 
 
 @dataclasses.dataclass

@@ -1,5 +1,5 @@
-"""Compute ops: prototype filter design, sort-free median reductions, and
-the fused Pallas channelizer kernel."""
+"""Compute ops: prototype filter design, exact median reductions, device
+payload dequantization, and the per-backend method choice."""
 
 from sdr_channelizer_tpu.ops.filters import (  # noqa: F401
     design_prototype_filter,

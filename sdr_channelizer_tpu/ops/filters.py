@@ -11,7 +11,7 @@ formula.  This matches the MATLAB design in passband gain, cutoff, and
 stopband floor — per-channel outputs agree within the filter's own SNR
 bound, which is the parity contract (BASELINE.md), not bit-exactness.
 
-Design is NumPy/f64 at setup time; only the resulting f32 taps go to TPU.
+Design is NumPy/f64 at setup time; only the resulting f32 taps go to the device.
 """
 
 from __future__ import annotations

@@ -3,17 +3,21 @@
 ``:86``, PRI ``predict_event.m:135``).  MATLAB ``median`` semantics: middle
 element for odd length, mean of the two middle elements for even length.
 
-Two exact implementations, selected per backend:
+Two exact implementations: :func:`median` (whole-capture noise floors)
+takes the backend's choice from ``ops.backend.noise_floor_median`` when
+``method`` is None; :func:`masked_median` (per-pulse windows) sorts unless
+told otherwise:
 
-* **sort** — ``jnp.sort``-based (CPU default; XLA sorts well there);
+* **sort** — ``jnp.sort``-based;
 * **select** — sort-free radix selection: map f32 to order-preserving u32
   keys, then walk the 32 bits MSB-first, counting survivors below each
-  pivot (32 data passes, pure elementwise + reductions).  This is the TPU
-  path: the TPU backend used here does not lower ``sort``, and even where
-  it does, a counting selection beats a full sort for single order
-  statistics.  Both paths pick exactly the same order statistics, so
-  results are bit-identical across backends (SURVEY.md section 7's
-  "document the median choice" note: the choice is *exact* on both).
+  pivot (32 data passes, or 32/bits with ``bits`` > 1; pure elementwise +
+  reductions).  It is also the streamed noise floor's algorithm
+  (``dsp.streaming``).
+
+Both pick exactly the same order statistics, so results are bit-identical
+whichever runs (SURVEY.md section 7's "document the median choice" note:
+the choice is *exact* on both).
 """
 
 from __future__ import annotations
@@ -24,14 +28,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-
-def use_sort_free() -> bool:
-    """True when the default backend should avoid ``sort`` lowering."""
-    try:
-        return jax.devices()[0].platform != "cpu"
-    except RuntimeError:
-        return False
-
+from sdr_channelizer_tpu.ops import backend
 
 def _sortable_u32(x: jax.Array) -> jax.Array:
     """IEEE-754 f32 -> u32 keys with the same total order (NaNs sort high)."""
@@ -79,7 +76,7 @@ def _kth_smallest_key_multibit(keys: jax.Array, mask: jax.Array, k: jax.Array,
     statistics to :func:`_kth_smallest_key`; the win is HBM passes — the
     noise-floor median over a (T, M) block is bandwidth-bound, and 8 passes
     (bits=4) beat 32 by ~the pass ratio when XLA fuses the per-level cut
-    compares into one read (verified in-graph on v5e, PROBE_r04).
+    compares into one read.
     """
     assert 32 % bits == 0, bits
     prefix = jnp.zeros_like(k, dtype=jnp.uint32)
@@ -110,7 +107,7 @@ def _masked_median_select(x: jax.Array, mask: jax.Array, axis: int,
     # The k_hi-th order statistic (n even) without a second 32-pass
     # descent: it is `lo` again when duplicates of lo cover rank k_hi,
     # else the smallest masked value strictly above it — one counting
-    # pass + one masked min (the pulse-stats kernel's `finish` trick).
+    # pass + one masked min.
     pref_e = jnp.expand_dims(pref, axis)
     cnt_le = jnp.sum(mask & (keys <= pref_e), axis=axis).astype(jnp.int32)
     nxt = jnp.min(jnp.where(mask & (keys > pref_e), x, jnp.inf), axis=axis)
@@ -139,14 +136,12 @@ def masked_median(
     """Median of ``x`` where ``mask`` is True along ``axis``.
 
     Exact MATLAB semantics (mean of the two middle order statistics for
-    even counts); NaN where the mask is empty.  ``method``: "sort",
-    "select", or None (per-backend choice).  ``bits``: radix bits per
+    even counts); NaN where the mask is empty.  ``method``: "sort" (also
+    for None) or "select".  ``bits``: radix bits per
     counting pass on the select path (1 = classic 32-pass descent; 4 =
     8 passes — same exact result, fewer HBM reads; used by the noise
     floor over large blocks).
     """
-    if method is None:
-        method = "select" if use_sort_free() else "sort"
     axis = axis % x.ndim
     mask = jnp.broadcast_to(mask, x.shape)
     if method == "select":
@@ -156,9 +151,11 @@ def masked_median(
 
 def median(x: jax.Array, axis: Optional[int] = None,
            method: Optional[str] = None, bits: int = 1) -> jax.Array:
-    """Exact median along ``axis`` (None = over all elements)."""
+    """Exact median along ``axis`` (None = over all elements).
+    ``method=None`` takes ``ops.backend.noise_floor_median`` (method and
+    bits)."""
     if method is None:
-        method = "select" if use_sort_free() else "sort"
+        method, bits = backend.noise_floor_median()
     if method == "sort":
         return jnp.median(x, axis=axis)
     if axis is None:

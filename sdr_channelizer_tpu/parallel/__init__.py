@@ -2,10 +2,11 @@
 halo exchange, cross-shard PDW latch chaining and merge.
 
 The reference is single-process / single-device over USB (SURVEY.md
-section 5.7-5.8); this package is the TPU-native scale-out design it never
+section 5.7-5.8); this package is the multi-device scale-out design it never
 had: the sample axis is sharded into time blocks (the sequence-parallel
 analog), the channel axis is sharded for PDW extraction (the tensor-parallel
-analog — the DFT matmul is column-split), FIR filter history rides ICI via
+analog — each mesh column keeps its band slice), FIR filter history rides
+NVLink (NCCL) via
 ``ppermute`` halos, and pulses straddling block edges are stitched exactly by
 composing the detector's latch transfer functions across shards.
 """

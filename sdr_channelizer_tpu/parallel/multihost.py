@@ -2,7 +2,7 @@
 array.
 
 The reference is strictly single-host over USB (SURVEY.md section 5.8).
-The TPU-native scale-out story for multi-GB capture sets across hosts:
+The scale-out story for multi-GB capture sets across hosts:
 
 * each process reads only the dwell files covering its own time shards
   (``host_local_time_range``) — no cross-host filesystem traffic;

@@ -1,22 +1,22 @@
 """Sharded channelize -> PDW pipeline over a (time x chan) mesh.
 
 The reference processes captures single-device (MATLAB loops,
-``create_pdws_channelized.m:79-136``); this module is the TPU-native
+``create_pdws_channelized.m:79-136``); this module is the multi-device
 scale-out path.  Design:
 
 * **Time sharding (sequence-parallel analog).**  The sample axis splits into
   contiguous blocks, one per mesh row.  The polyphase FIR needs the previous
   ``P-1`` frames of history (prototype length ``M*P`` taps,
   ``create_pdws_channelized.m:31-33``) — each shard ``ppermute``s its tail
-  frames to its right neighbor over ICI (overlap-save), so block outputs
+  frames to its right neighbor (overlap-save; on GPUs XLA hands the
+  ``ppermute`` to NCCL over NVLink), so block outputs
   concatenate to exactly the unsharded channelizer output (zero initial
   state, matching MATLAB System-object semantics).
 
-* **Channel sharding (tensor-parallel analog).**  Channel extraction is a
-  DFT matmul ``u @ W``; each mesh column owns a column slice of ``W`` (its
-  bands) and all downstream PDW work for them.  With one mesh column the FFT
-  path is used and output is bit-identical to the single-device reference
-  implementation.
+* **Channel sharding (tensor-parallel analog).**  Each mesh column owns a
+  slice of the bands and all downstream PDW work for them.  Every column
+  transforms all branches and keeps its slice, so the output is
+  bit-identical to the single-device path.
 
 * **Exact PDW stitching.**  The detector's pulse-active hysteresis latch is
   a composition of per-sample boolean transfer functions
@@ -50,7 +50,7 @@ from jax.sharding import PartitionSpec as P
 from sdr_channelizer_tpu.config import PdwConfig
 from sdr_channelizer_tpu.dsp import channelizer as chmod
 from sdr_channelizer_tpu.dsp import pdw as pdwmod
-from sdr_channelizer_tpu.ops import medians
+from sdr_channelizer_tpu.ops import ingest, medians
 from sdr_channelizer_tpu.dsp.pdw import PdwBatch
 from sdr_channelizer_tpu.parallel.mesh import CHAN_AXIS, TIME_AXIS
 
@@ -104,7 +104,6 @@ def _build_channelize_local(chan, n_time: int, n_chan: int, t_loc: int):
     if m % n_chan:
         raise ValueError(f"num_bands {m} not divisible by chan mesh axis {n_chan}")
     m_loc = m // n_chan
-    wmat_np = chmod.dft_matrix(m, shifted=True)
 
     def local(x_loc: jax.Array) -> jax.Array:
         frames = x_loc.reshape(t_loc, m)
@@ -117,24 +116,22 @@ def _build_channelize_local(chan, n_time: int, n_chan: int, t_loc: int):
         else:
             hist = jnp.zeros((1, m), frames.dtype)
         u = chmod._fir_branches(frames, hist, taps)
-        if n_chan == 1 and chmod.resolve_method("auto") == "fft":
-            # FFT path: bit-identical to the single-device reference impl.
-            return jnp.fft.fftshift(jnp.fft.fft(u, axis=-1), axes=-1)
+        # Every mesh column transforms all branches and keeps its band
+        # slice: the same FFT as the single-device path, bit for bit.
+        y = chmod.fft_extract(u)
+        if n_chan == 1:
+            return y
         c_i = jax.lax.axis_index(CHAN_AXIS)
-        w_loc = jax.lax.dynamic_slice_in_dim(
-            jnp.asarray(wmat_np), c_i * m_loc, m_loc, axis=1
-        )
-        return u @ w_loc
+        return jax.lax.dynamic_slice_in_dim(y, c_i * m_loc, m_loc, axis=1)
 
     return local
 
 
 def _build_channelize_local_planes(chan, n_time: int, n_chan: int, t_loc: int):
     """Complex-free twin of :func:`_build_channelize_local`: float32
-    real/imag planes in, the DFT as four real MXU matmuls with column
-    slices of ``Wr``/``Wi`` per mesh column — same numbers as
-    ``dsp.channelizer.channelize_planes``, for TPU transports that cannot
-    lower complex arithmetic or transfer complex arrays."""
+    real/imag planes in, the DFT as four real matmuls with column slices of
+    ``Wr``/``Wi`` per mesh column — same numbers as
+    ``dsp.channelizer.channelize_planes``."""
     taps_np = chan.taps_rev  # (P, M) float32
     m = chan.num_bands
     if m % n_chan:
@@ -162,241 +159,10 @@ def _build_channelize_local_planes(chan, n_time: int, n_chan: int, t_loc: int):
         c_i = jax.lax.axis_index(CHAN_AXIS)
         wr = jax.lax.dynamic_slice_in_dim(jnp.asarray(wr_np), c_i * m_loc, m_loc, axis=1)
         wi = jax.lax.dynamic_slice_in_dim(jnp.asarray(wi_np), c_i * m_loc, m_loc, axis=1)
-        yr = ur @ wr - ui @ wi
-        yi = ur @ wi + ui @ wr
+        mm = functools.partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
+        yr = mm(ur, wr) - mm(ui, wi)
+        yi = mm(ur, wi) + mm(ui, wr)
         return yr, yi
-
-    return local
-
-
-def _build_channelize_local_fused(chan, cfg: PdwConfig, n_time: int,
-                                  n_chan: int, t_loc: int, packed: bool,
-                                  bit_width: int):
-    """Per-shard fused Pallas channelize + detection-streams kernel with
-    overlap-save FIR history over ``ppermute`` — the multi-chip form of
-    ``models.pipeline.ChannelizerPipeline.forward_fused`` /
-    ``forward_packed``.  Each shard sends its last ``P-1`` frames right;
-    the kernel consumes them as its FIR entry state (``history=``), so the
-    concatenated streams equal the single-device kernel bit-for-bit.
-
-    With ``n_chan > 1`` each mesh column hands the kernel its band slice of
-    the shift-folded DFT matrix (the kernel's channel extraction is a
-    ``u @ W`` matmul — SURVEY section 5.8's (time x chan) mesh): the FIR
-    branches are recomputed per column (cheap, P MACs/sample) and each
-    emitted band stays bit-identical to the full-matrix kernel because the
-    contraction runs over the same padded rows in the same order."""
-    from sdr_channelizer_tpu.ops.pallas.channelizer_kernel import (
-        pallas_channelize_streams,
-        pallas_channelize_streams_packed,
-    )
-
-    taps_np = chan.taps_rev  # (P, M) float32
-    p, m = taps_np.shape
-    m_loc = m // n_chan
-    w = chmod.dft_matrix(m, shifted=True)
-    wr_np = np.ascontiguousarray(np.real(w), np.float32)
-    wi_np = np.ascontiguousarray(np.imag(w), np.float32)
-
-    def w_slice():
-        if n_chan == 1:
-            return None
-        c_i = jax.lax.axis_index(CHAN_AXIS)
-        return (
-            jax.lax.dynamic_slice_in_dim(
-                jnp.asarray(wr_np), c_i * m_loc, m_loc, axis=1),
-            jax.lax.dynamic_slice_in_dim(
-                jnp.asarray(wi_np), c_i * m_loc, m_loc, axis=1),
-        )
-
-    def exchange_tail(frames):
-        if p == 1:
-            return None
-        tail = frames[-(p - 1):]
-        return jax.lax.ppermute(tail, TIME_AXIS, _fwd_perm(n_time))
-
-    if packed:
-        def local(xq_loc: jax.Array):
-            hist = exchange_tail(xq_loc.reshape(t_loc, m))
-            return pallas_channelize_streams_packed(
-                xq_loc, taps_np, bit_width=bit_width,
-                sat_level=cfg.saturation_level, history=hist,
-                w_parts=w_slice(),
-            )
-    else:
-        def local(xr_loc: jax.Array, xi_loc: jax.Array):
-            hr = exchange_tail(xr_loc.reshape(t_loc, m))
-            hi = exchange_tail(xi_loc.reshape(t_loc, m))
-            history = None if hr is None else (hr, hi)
-            return pallas_channelize_streams(
-                xr_loc, xi_loc, taps_np, bit_width=bit_width,
-                sat_level=cfg.saturation_level, history=history,
-                w_parts=w_slice(),
-            )
-
-    return local
-
-
-def _build_channelize_local_fused2(chan, cfg: PdwConfig, n_time: int,
-                                   n_chan: int, t_loc: int, halo: int,
-                                   packed: bool, bit_width: int):
-    """Per-shard v2 (cm2) fused kernel with RAW halo exchange.
-
-    Each shard ppermutes its last ``P-1`` raw frames right (FIR history,
-    as v1) and receives the NEXT shard's first ``halo`` raw frames left,
-    then runs the cm2 kernel over ``t_loc + halo`` frames — the kernel
-    computes the halo's detection streams locally, so (a) the ICI payload
-    is ONE raw array instead of v1's three f32 stream halos (¼ the
-    bytes for int16 payloads), (b) the cross-boundary phase diff at
-    column ``t_loc - 1`` is computed natively (the halo frames are in the
-    same kernel input), and (c) the per-shard saturation cumsum needs no
-    cross-shard base alignment (the extraction only ever differences it).
-    Halo columns equal the single-device streams bit-for-bit: same
-    frames, same FIR history (the shard owns the preceding tail), same
-    op order.  The last shard's halo input is ppermute zeros; its latch
-    guard is applied downstream (``_build_pdw_local_cm2``)."""
-    from sdr_channelizer_tpu.ops.pallas.channelizer_kernel import (
-        pallas_channelize_streams_cm2,
-        pallas_channelize_streams_packed_cm2,
-    )
-
-    taps_np = chan.taps_rev  # (P, M) float32
-    p, m = taps_np.shape
-    m_loc = m // n_chan
-    w = chmod.dft_matrix(m, shifted=True)
-    wr_np = np.ascontiguousarray(np.real(w), np.float32)
-    wi_np = np.ascontiguousarray(np.imag(w), np.float32)
-
-    def w_slice():
-        if n_chan == 1:
-            return None
-        c_i = jax.lax.axis_index(CHAN_AXIS)
-        return (
-            jax.lax.dynamic_slice_in_dim(
-                jnp.asarray(wr_np), c_i * m_loc, m_loc, axis=1),
-            jax.lax.dynamic_slice_in_dim(
-                jnp.asarray(wi_np), c_i * m_loc, m_loc, axis=1),
-        )
-
-    def exchange(frames):
-        hist = (jax.lax.ppermute(frames[-(p - 1):], TIME_AXIS,
-                                 _fwd_perm(n_time))
-                if p > 1 else None)
-        head = (jax.lax.ppermute(frames[:halo], TIME_AXIS,
-                                 _bwd_perm(n_time))
-                if halo else None)
-        return hist, head
-
-    if packed:
-        def local(xq_loc: jax.Array):
-            frames = xq_loc.reshape(t_loc, m)
-            hist, head = exchange(frames)
-            ext = frames if head is None else jnp.concatenate([frames, head])
-            return pallas_channelize_streams_packed_cm2(
-                ext.reshape(-1), taps_np, bit_width=bit_width,
-                sat_level=cfg.saturation_level, history=hist,
-                w_parts=w_slice(),
-            )
-    else:
-        def local(xr_loc: jax.Array, xi_loc: jax.Array):
-            fr = xr_loc.reshape(t_loc, m)
-            fi = xi_loc.reshape(t_loc, m)
-            hr, headr = exchange(fr)
-            hi, headi = exchange(fi)
-            extr = fr if headr is None else jnp.concatenate([fr, headr])
-            exti = fi if headi is None else jnp.concatenate([fi, headi])
-            history = None if hr is None else (hr, hi)
-            return pallas_channelize_streams_cm2(
-                extr.reshape(-1), exti.reshape(-1), taps_np,
-                bit_width=bit_width, sat_level=cfg.saturation_level,
-                history=history, w_parts=w_slice(),
-            )
-
-    return local
-
-
-def _build_pdw_local_cm2(cfg: PdwConfig, n_time: int, t_loc: int,
-                         halo: int, m_loc: int, t_ext: int):
-    """Per-shard v2 extraction from the cm2 streams (``t_ext = t_loc +
-    halo`` columns; arrays may be grid-padded past it): cross-shard latch
-    chaining as v1, last-shard +inf latch guard over the halo columns
-    (pulse open at capture end never closes — the reference rule), and
-    ``_extract_channelized_cm2`` with the block contract."""
-
-    def local(mag_cm, dph_cm, satcs_cm, nf_loc: jax.Array) -> PdwBatch:
-        t_i = jax.lax.axis_index(TIME_AXIS)
-
-        a_blk, b_blk = pdwmod.block_transfer(
-            mag_cm[:m_loc, :t_loc], nf_loc[:, None],
-            cfg.snr_threshold_db, cfg.trailing_threshold_db,
-        )
-        ag_a = jax.lax.all_gather(a_blk, TIME_AXIS)
-        ag_b = jax.lax.all_gather(b_blk, TIME_AXIS)
-        pa, _ = jax.lax.associative_scan(
-            pdwmod.compose_transfer, (ag_a, ag_b), axis=0
-        )
-        prev = jnp.take(pa, jnp.maximum(t_i - 1, 0), axis=0)
-        entry = jnp.where(t_i == 0, jnp.zeros((m_loc,), bool), prev)
-
-        col = jnp.arange(mag_cm.shape[1])[None, :]
-        mag_latch = jnp.where(
-            (t_i == n_time - 1) & (col >= t_loc), jnp.inf, mag_cm)
-
-        batch = pdwmod._extract_channelized_cm2(
-            mag_cm, dph_cm, satcs_cm, cfg, nf_loc, t_ext, m_loc,
-            entry_active=entry, own_len=t_loc, mag_latch_cm=mag_latch,
-        )
-        return jax.tree.map(lambda v: v[None], batch)
-
-    return local
-
-
-def _build_pdw_local_streams(cfg: PdwConfig, n_time: int, t_loc: int,
-                             halo: int, m: int, pallas_stats: bool):
-    """Per-shard PDW extraction from precomputed (t_loc, M) detection
-    streams: right stream halo + cross-shard latch chaining, statistics via
-    either the Pallas ``pulse_stats`` path (``pallas_stats=True`` — the
-    single-chip fast path, shard-local) or the XLA block core."""
-    core = functools.partial(
-        pdwmod.extract_pdws_block_core,
-        own_len=t_loc,
-        snr_threshold_db=cfg.snr_threshold_db,
-        trailing_threshold_db=cfg.trailing_threshold_db,
-        max_pulses=cfg.max_pulses,
-        max_pulse_samples=cfg.max_pulse_samples,
-    )
-
-    def local(mag, ph, sat, nf: jax.Array) -> PdwBatch:
-        t_i = jax.lax.axis_index(TIME_AXIS)
-        hm = jax.lax.ppermute(mag[:halo], TIME_AXIS, _bwd_perm(n_time))
-        hp = jax.lax.ppermute(ph[:halo], TIME_AXIS, _bwd_perm(n_time))
-        hs = jax.lax.ppermute(sat[:halo], TIME_AXIS, _bwd_perm(n_time))
-        hm = jnp.where(t_i == n_time - 1, jnp.inf, hm)
-        mag_e = jnp.concatenate([mag, hm], axis=0)
-        ph_e = jnp.concatenate([ph, hp], axis=0)
-        sat_e = jnp.concatenate([sat, hs], axis=0) > 0.5
-
-        a_blk, b_blk = pdwmod.block_transfer(
-            mag.T, nf[:, None],
-            cfg.snr_threshold_db, cfg.trailing_threshold_db,
-        )
-        ag_a = jax.lax.all_gather(a_blk, TIME_AXIS)
-        ag_b = jax.lax.all_gather(b_blk, TIME_AXIS)
-        pa, _ = jax.lax.associative_scan(
-            pdwmod.compose_transfer, (ag_a, ag_b), axis=0
-        )
-        prev = jnp.take(pa, jnp.maximum(t_i - 1, 0), axis=0)
-        entry = jnp.where(t_i == 0, jnp.zeros((m,), bool), prev)
-
-        if pallas_stats:
-            batch = pdwmod._extract_channelized_pallas_stats(
-                mag_e, ph_e, sat_e, cfg, nf,
-                entry_active=entry, own_len=t_loc,
-            )
-        else:
-            batch = jax.vmap(core, in_axes=(1, 1, 1, 0, 0))(
-                mag_e, ph_e, sat_e, nf, entry
-            )
-        return jax.tree.map(lambda v: v[None], batch)
 
     return local
 
@@ -495,9 +261,17 @@ class ShardedPipeline:
     def n_chan(self) -> int:
         return self.mesh.shape[CHAN_AXIS]
 
-    def _build(self, n_samples: int):
+    def _build(self, n_samples: int, to_complex=None):
+        """Jitted sharded step over an ``n_samples`` capture.  With
+        ``to_complex`` (a map from the step's inputs to the complex capture,
+        e.g. the packed-payload dequant of ``ops.ingest``) the step takes
+        those inputs and returns (noise_floor, batch); without it, it takes
+        the complex capture and returns (chan_iq, noise_floor, batch)."""
         n_time, n_chan = self.n_time, self.n_chan
         m = self.channelizer.num_bands
+        if m % n_chan:
+            raise ValueError(
+                f"num_bands {m} not divisible by chan mesh axis {n_chan}")
         if n_samples % (n_time * m):
             raise ValueError(
                 f"capture length {n_samples} must divide into "
@@ -514,8 +288,7 @@ class ShardedPipeline:
             **{f.name: P(TIME_AXIS, CHAN_AXIS) for f in dataclasses.fields(PdwBatch)}
         )
 
-        @jax.jit
-        def step(x) -> Tuple[jax.Array, jax.Array, PdwBatch]:
+        def forward(x) -> Tuple[jax.Array, jax.Array, PdwBatch]:
             y = jax.shard_map(
                 chan_local, mesh=self.mesh,
                 in_specs=P(TIME_AXIS), out_specs=P(TIME_AXIS, CHAN_AXIS),
@@ -530,12 +303,19 @@ class ShardedPipeline:
             )(y, nf)
             return y, nf, batch
 
+        if to_complex is None:
+            return jax.jit(forward), t_loc
+
+        @jax.jit
+        def step(*inputs) -> Tuple[jax.Array, PdwBatch]:
+            _, nf, batch = forward(to_complex(*inputs))
+            return nf, batch
+
         return step, t_loc
 
     def _build_planes(self, n_samples: int):
         """Complex-free twin of :meth:`_build`: (xr, xi) planes in,
-        (yr, yi, nf, batch) out — the graph that lowers on TPU transports
-        without complex support (the multi-chip form of
+        (yr, yi, nf, batch) out (the multi-device form of
         ``models.pipeline.ChannelizerPipeline.forward_planes``)."""
         n_time, n_chan = self.n_time, self.n_chan
         m = self.channelizer.num_bands
@@ -579,202 +359,29 @@ class ShardedPipeline:
 
         return step, t_loc
 
-    def _build_fused(self, n_samples: int, packed: bool, bit_width: int,
-                     stats: str = "auto"):
-        """Fused-kernel sharded pipeline over the full (time x chan) mesh:
-        per-shard Pallas channelize + detection-streams kernel (overlap-save
-        FIR history over ICI; each mesh column emits its band slice of the
-        in-kernel DFT matmul), global noise-floor median, per-shard PDW
-        extraction with the Pallas ``pulse_stats`` path when feasible —
-        the multi-chip composition of the single-chip headline path
-        (``bench.py``; ``create_pdws_channelized.m:57-136``).
-
-        ``stats``: "auto" (Pallas stats off-CPU when the block fits),
-        "pallas" (force — interpret-mode on CPU, for parity tests), or
-        "xla" (block-core scan).
-        """
-        n_time, n_chan = self.n_time, self.n_chan
-        m = self.channelizer.num_bands
-        if m % n_chan:
-            raise ValueError(
-                f"num_bands {m} not divisible by chan mesh axis {n_chan}")
-        if n_samples % (n_time * m):
-            raise ValueError(
-                f"capture length {n_samples} must divide into "
-                f"{n_time} time shards of whole {m}-sample frames"
-            )
-        t_loc = n_samples // (n_time * m)
-        p = self.channelizer.taps_rev.shape[0]
-        if t_loc < p - 1:
-            raise ValueError(
-                f"fused sharded pipeline needs at least P-1 = {p - 1} frames "
-                f"per shard for the FIR history handoff; got {t_loc} "
-                f"({n_samples} samples over {n_time} shards of {m}-sample "
-                f"frames) — use fewer time shards"
-            )
-        halo = _cap_halo(self.halo_frames or self.pdw_cfg.max_pulse_samples,
-                         t_loc, self._strict_halo)
-
-        if stats == "auto":
-            pallas_stats = pdwmod._pallas_stats_ok(t_loc + halo, self.pdw_cfg)
-        elif stats == "pallas":
-            pallas_stats = True
-        elif stats == "xla":
-            pallas_stats = False
-        else:
-            raise ValueError(f"unknown stats mode {stats!r}")
-
-        chan_local = _build_channelize_local_fused(
-            self.channelizer, self.pdw_cfg, n_time, n_chan, t_loc, packed,
-            bit_width
-        )
-        pdw_local = _build_pdw_local_streams(
-            self.pdw_cfg, n_time, t_loc, halo, m // n_chan, pallas_stats
-        )
-        batch_specs = PdwBatch(
-            **{f.name: P(TIME_AXIS, CHAN_AXIS) for f in dataclasses.fields(PdwBatch)}
-        )
-        stream_spec = P(TIME_AXIS, CHAN_AXIS)
-        stream_specs = (stream_spec, stream_spec, stream_spec)
-        in_specs = (P(TIME_AXIS),) if packed else (P(TIME_AXIS), P(TIME_AXIS))
-
-        @jax.jit
-        def step(*planes) -> Tuple[jax.Array, PdwBatch]:
-            mag, ph, sat = jax.shard_map(
-                chan_local, mesh=self.mesh,
-                in_specs=in_specs, out_specs=stream_specs,
-                check_vma=False,
-            )(*planes)
-            nf = medians.median(mag, axis=0)  # global per-band median
-            batch = jax.shard_map(
-                pdw_local, mesh=self.mesh,
-                in_specs=(stream_spec, stream_spec, stream_spec,
-                          P(CHAN_AXIS)),
-                out_specs=batch_specs,
-                check_vma=False,
-            )(mag, ph, sat, nf)
-            return nf, batch
-
-        return step, t_loc
-
-    def _fused2_ok(self, n_samples: int) -> bool:
-        """True when the v2 (cm2) sharded route applies: per-column band
-        slices must be 8-row-aligned (the slim cm streams concatenate
-        without interleaved pad rows, so the global array's first M rows
-        are exactly the real channels) and the extended block must fit
-        the stats kernel."""
-        m = self.channelizer.num_bands
-        if m % self.n_chan or (m // self.n_chan) % 8:
-            return False
-        if n_samples % (self.n_time * m):
-            return False
-        t_loc = n_samples // (self.n_time * m)
-        halo = min(self.halo_frames or self.pdw_cfg.max_pulse_samples, t_loc)
-        return (pdwmod._pallas_stats_ok(t_loc + halo, self.pdw_cfg)
-                and t_loc >= self.channelizer.taps_rev.shape[0] - 1)
-
-    def _build_fused2(self, n_samples: int, packed: bool, bit_width: int):
-        """v2 (cm2) fused sharded step: per-shard slim channel-major
-        Pallas kernels with RAW halo exchange over ICI, a global masked
-        noise-floor median between the two shard_maps, and the v2
-        extraction tail per shard — the multi-chip composition of the
-        round-4 single-chip headline route.  Requires :meth:`_fused2_ok`.
-        """
-        n_time, n_chan = self.n_time, self.n_chan
-        m = self.channelizer.num_bands
-        m_loc = m // n_chan
-        t_loc = n_samples // (n_time * m)
-        halo = _cap_halo(self.halo_frames or self.pdw_cfg.max_pulse_samples,
-                         t_loc, self._strict_halo)
-        t_ext = t_loc + halo
-        # grid pad of the per-shard cm2 kernel (same default the wrapper
-        # will pick — the owned-column mask below must match it)
-        from sdr_channelizer_tpu.ops.pallas.channelizer_kernel import (
-            _default_cm2_block, _lane_pad,
-        )
-
-        bf = _default_cm2_block(t_ext, _lane_pad(m))
-        t_pad = ((t_ext + bf - 1) // bf) * bf
-
-        chan_local = _build_channelize_local_fused2(
-            self.channelizer, self.pdw_cfg, n_time, n_chan, t_loc, halo,
-            packed, bit_width)
-        pdw_local = _build_pdw_local_cm2(
-            self.pdw_cfg, n_time, t_loc, halo, m_loc, t_ext)
-        batch_specs = PdwBatch(
-            **{f.name: P(TIME_AXIS, CHAN_AXIS)
-               for f in dataclasses.fields(PdwBatch)}
-        )
-        cm_spec = P(CHAN_AXIS, TIME_AXIS)
-        in_specs = (P(TIME_AXIS),) if packed else (P(TIME_AXIS),) * 2
-
-        @jax.jit
-        def step(*planes) -> Tuple[jax.Array, PdwBatch]:
-            mag_cm, dph_cm, satcs_cm = jax.shard_map(
-                chan_local, mesh=self.mesh,
-                in_specs=in_specs, out_specs=(cm_spec,) * 3,
-                check_vma=False,
-            )(*planes)
-            # Global per-band median over OWNED columns only (each shard's
-            # trailing halo+grid-pad columns are masked out).
-            col = jnp.arange(mag_cm.shape[1])
-            owned = (col % t_pad) < t_loc
-            nf = medians.masked_median(mag_cm, owned[None, :], axis=1,
-                                       bits=4)
-            batch = jax.shard_map(
-                pdw_local, mesh=self.mesh,
-                in_specs=(cm_spec, cm_spec, cm_spec, P(CHAN_AXIS)),
-                out_specs=batch_specs,
-                check_vma=False,
-            )(mag_cm, dph_cm, satcs_cm, nf)
-            return nf, batch
-
-        return step, t_loc
-
-    def step_fused(self, xr: jax.Array, xi: jax.Array, bit_width: int = 0,
-                   stats: str = "auto", route: str = "auto"):
-        """Run the fused sharded pipeline on float32 (or raw int16) sample
-        planes.  Returns (noise_floor, batch).  ``route``: "auto" takes
-        the v2 cm2 composition when :meth:`_fused2_ok`, else the v1
-        time-major form; "cm2"/"cm" force."""
-        n = int(np.shape(xr)[-1])
-        if route == "auto":
-            # an explicit stats mode pins the v1 route (the knob only
-            # exists there); otherwise prefer the v2 composition
-            route = ("cm2" if stats == "auto" and self._fused2_ok(n)
-                     else "cm")
-        key = ("fused", n, bit_width, stats, route)
+    def _cached(self, key, n_samples: int, to_complex=None):
         if key not in self._cache:
-            if route == "cm2":
-                self._cache[key] = self._build_fused2(
-                    n, packed=False, bit_width=bit_width)
-            else:
-                self._cache[key] = self._build_fused(
-                    n, packed=False, bit_width=bit_width, stats=stats
-                )
-        fn, _ = self._cache[key]
+            self._cache[key] = self._build(n_samples, to_complex)
+        return self._cache[key]
+
+    def step_fused(self, xr: jax.Array, xi: jax.Array, bit_width: int = 0):
+        """Run the sharded pipeline on integer (``bit_width`` > 0) or float
+        I/Q sample planes.  Returns (noise_floor, batch)."""
+        n = int(np.shape(xr)[-1])
+        fn, _ = self._cached(
+            ("planes", n, bit_width), n,
+            functools.partial(ingest.planes_complex, bit_width=bit_width))
         return fn(xr, xi)
 
-    def step_packed(self, xq: jax.Array, bit_width: int = 12,
-                    stats: str = "auto", route: str = "auto"):
-        """Run the fused sharded pipeline on the packed recorder payload
+    def step_packed(self, xq: jax.Array, bit_width: int = 12):
+        """Run the sharded pipeline on the packed recorder payload
         (``samples.view(int32)`` of an (N, 2) int16 buffer, or
-        ``view(int16)`` of int8).  Returns (noise_floor, batch).
-        ``route`` as in :meth:`step_fused`."""
+        ``view(int16)`` of int8), dequantized on the devices.  Returns
+        (noise_floor, batch)."""
         n = int(np.shape(xq)[-1])
-        if route == "auto":
-            route = ("cm2" if stats == "auto" and self._fused2_ok(n)
-                     else "cm")
-        key = ("packed", n, bit_width, stats, route)
-        if key not in self._cache:
-            if route == "cm2":
-                self._cache[key] = self._build_fused2(
-                    n, packed=True, bit_width=bit_width)
-            else:
-                self._cache[key] = self._build_fused(
-                    n, packed=True, bit_width=bit_width, stats=stats
-                )
-        fn, _ = self._cache[key]
+        fn, _ = self._cached(
+            ("packed", n, bit_width), n,
+            functools.partial(ingest.unpack_complex, bit_width=bit_width))
         return fn(xq)
 
     def extract_fused(
@@ -784,24 +391,18 @@ class ShardedPipeline:
         fs: float,
         fc: float = 0.0,
         sample_start_time: float = 0.0,
-        stats: str = "auto",
     ) -> dict:
-        """Raw (N, 2) payload -> host PDW dict through the fused sharded
-        graph (the multi-chip twin of
+        """Raw (N, 2) payload -> host PDW dict through the sharded graph
+        (the multi-device twin of
         ``models.ChannelizerPipeline.extract_fused``)."""
         samples = np.ascontiguousarray(samples)
-        if samples.dtype == np.int16:
-            _, batch = self.step_packed(
-                samples.view(np.int32).ravel(), bit_width=bit_width, stats=stats
-            )
-        elif samples.dtype == np.int8:
-            _, batch = self.step_packed(
-                samples.view(np.int16).ravel(), bit_width=bit_width, stats=stats
-            )
+        if samples.dtype in (np.int16, np.int8):
+            _, batch = self.step_packed(ingest.packed_view(samples),
+                                        bit_width=bit_width)
         else:
             xr = np.ascontiguousarray(samples[:, 0], np.float32)
             xi = np.ascontiguousarray(samples[:, 1], np.float32)
-            _, batch = self.step_fused(xr, xi, bit_width=bit_width, stats=stats)
+            _, batch = self.step_fused(xr, xi, bit_width=bit_width)
         t_loc = int(np.shape(samples)[0]) // (self.n_time * self.channelizer.num_bands)
         return self._finalize_merged(batch, t_loc, fs, fc, sample_start_time)
 
@@ -823,9 +424,7 @@ class ShardedPipeline:
         """Run the sharded pipeline.  Returns (chan_iq, noise_floor, batch)
         with ``batch`` arrays stacked ``(n_time, M, max_pulses)``."""
         n = int(np.shape(x)[-1])
-        if n not in self._cache:
-            self._cache[n] = self._build(n)
-        fn, _ = self._cache[n]
+        fn, _ = self._cached(n, n)
         return fn(x)
 
     def step_planes(self, xr: jax.Array, xi: jax.Array):
@@ -867,9 +466,7 @@ class ShardedPipeline:
         """Full capture -> host PDW dict (decimated-rate TOAs/PWs, absolute
         frequencies), matching ``create_pdws_channelized.m`` semantics."""
         n = int(np.shape(x)[-1])
-        if n not in self._cache:
-            self._cache[n] = self._build(n)
-        fn, t_loc = self._cache[n]
+        fn, t_loc = self._cached(n, n)
         _, _, batch = fn(x)
         return self._finalize_merged(batch, t_loc, fs, fc, sample_start_time)
 
@@ -945,8 +542,7 @@ def sharded_channelize(
 ) -> jax.Array:
     """Standalone time/channel-sharded channelizer (exact overlap-save).
 
-    Output equals ``dsp.channelizer.channelize(x, chan)`` — bit-for-bit with
-    one mesh column, within DFT-vs-FFT rounding otherwise.
+    Output equals ``dsp.channelizer.channelize(x, chan)`` bit for bit.
     """
     n_time = mesh.shape[TIME_AXIS]
     n_chan = mesh.shape[CHAN_AXIS]

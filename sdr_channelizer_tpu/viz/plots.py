@@ -84,40 +84,21 @@ def waterfall_window_pngs(
     """
     import os
 
-    import jax
     import jax.numpy as jnp
 
-    from sdr_channelizer_tpu.dsp.channelizer import (
-        Channelizer,
-        channelize,
-        channelize_planes,
-    )
+    from sdr_channelizer_tpu.dsp.channelizer import Channelizer, channelize
 
     os.makedirs(out_dir, exist_ok=True)
     chan = Channelizer.create(num_bands)
     win = int(window_sec * fs) // num_bands * num_bands
     step = step_samples if step_samples is not None else 100 * num_bands
-    try:
-        on_device = jax.devices()[0].platform != "cpu"
-    except RuntimeError:
-        on_device = False
-    if on_device:
-        # Complex d2h is unimplemented on some TPU transports; fetch the
-        # magnitude (all the waterfall needs) from the planes graph.
-        mag_fn = jax.jit(lambda a, b: (lambda yr, yi: jnp.sqrt(
-            yr * yr + yi * yi))(*channelize_planes(a, b, chan)))
     paths = []
     starts = range(0, max(len(iq) - win, 0) + 1, step)
     for k, s in enumerate(starts):
         if limit is not None and k >= limit:
             break
         w = iq[s : s + win]
-        if on_device:
-            y = np.asarray(mag_fn(
-                jnp.asarray(np.ascontiguousarray(np.real(w), np.float32)),
-                jnp.asarray(np.ascontiguousarray(np.imag(w), np.float32))))
-        else:
-            y = np.abs(np.asarray(channelize(jnp.asarray(w), chan)))
+        y = np.asarray(jnp.abs(channelize(jnp.asarray(w), chan)))
         p = os.path.join(out_dir, f"frame_{k:05d}.png")
         waterfall_png(p, y, fs, fc, title=f"t = {s / fs * 1e3:.2f} ms")
         paths.append(p)

@@ -230,7 +230,7 @@ def test_tracker_drops_errored_dwells():
 
 
 def test_device_dwell_emitter_stress_scenes():
-    """The round-5 tracker stress scenes (tools/tpu_tracker_drive.py):
+    """Tracker stress scenes:
     a second emitter at a distinct PRI interleaves with the scanned one,
     and an over-full-scale emitter trips the saturation -> gain-down
     ladder on the device-emitter drive (usrp_predict_event.cpp:210-218)."""

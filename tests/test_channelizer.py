@@ -191,3 +191,129 @@ def test_fine_grained_560_bands():
     y = np.asarray(chlib.channelize(jnp.asarray(x), chan))
     steady = np.abs(y[20:])
     assert steady.mean(axis=0).argmax() == m // 2 + 37
+
+
+@pytest.mark.parametrize("method", ["fft", "dft"])
+@pytest.mark.parametrize("m,n_frames", [(8, 256), (64, 300)])
+def test_extraction_methods_match_brute_force(m, n_frames, method):
+    """Both channel extractions ``ops.backend`` can pick (FFT, and the
+    DFT matmul at HIGHEST precision) against the defining equation, with
+    the fftshift centering, at production band counts."""
+    rng = np.random.default_rng(m)
+    n = m * n_frames
+    x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(np.complex64)
+    ch = chlib.Channelizer.create(m)
+    h = ch.taps_rev[:, ::-1].reshape(-1).astype(np.float64)
+    got = np.asarray(ch(x, shift=True, method=method))
+    want = np.fft.fftshift(
+        brute_force_channelize(np.asarray(x, np.complex128), m, h), axes=-1)
+    np.testing.assert_allclose(got, want, atol=5e-5)
+
+
+def test_dft_unshifted_matches_brute_force():
+    m, n_frames = 8, 128
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal(m * n_frames)
+         + 1j * rng.standard_normal(m * n_frames)).astype(np.complex64)
+    ch = chlib.Channelizer.create(m)
+    h = ch.taps_rev[:, ::-1].reshape(-1).astype(np.float64)
+    got = np.asarray(ch(x, shift=False, method="dft"))
+    want = brute_force_channelize(np.asarray(x, np.complex128), m, h)
+    np.testing.assert_allclose(got, want, atol=2e-5)
+
+
+def test_dft_path_matches_fft_path():
+    """The DFT-matmul extraction equals the FFT extraction to f32
+    rounding (the parity contract a TF32 matmul would break)."""
+    import jax.numpy as jnp
+
+    m, n_frames = 16, 512
+    rng = np.random.default_rng(1)
+    x = (rng.standard_normal(m * n_frames)
+         + 1j * rng.standard_normal(m * n_frames)).astype(np.complex64)
+    ch = chlib.Channelizer.create(m)
+    a = np.asarray(chlib.channelize(jnp.asarray(x), ch, method="fft"))
+    b = np.asarray(chlib.channelize(jnp.asarray(x), ch, method="dft"))
+    np.testing.assert_allclose(b, a, rtol=0, atol=2e-5 * np.max(np.abs(a)))
+
+
+def test_every_dft_matmul_asks_for_highest_precision():
+    """A default-precision f32 matmul may run in TF32 on a GPU; each DFT
+    matmul of the channelizer, its planes twin and the spectrogram pins
+    ``precision=HIGHEST`` in the traced program."""
+    import jax
+    import jax.numpy as jnp
+
+    from sdr_channelizer_tpu.dsp import spectrogram
+
+    m = 8
+    ch = chlib.Channelizer.create(m)
+    x = jnp.zeros(m * 32, jnp.complex64)
+    xr = jnp.zeros(m * 32, jnp.float32)
+    progs = [
+        jax.make_jaxpr(lambda v: chlib.channelize(v, ch, method="dft"))(x),
+        jax.make_jaxpr(lambda a, b: chlib.channelize_planes(a, b, ch))(xr, xr),
+        jax.make_jaxpr(lambda a, b: spectrogram._windowed_dft_power_planes(
+            a.reshape(-1, 16), b.reshape(-1, 16), 16,
+            np.ones(16, np.float32)))(xr, xr),
+    ]
+    for prog in progs:
+        text = str(prog)
+        n_dots = text.count("dot_general")
+        assert n_dots > 0
+        assert text.count("Precision.HIGHEST") >= n_dots, text
+
+
+@pytest.mark.parametrize("seed,t_len,m", [(0, 256, 8), (1, 768, 128),
+                                          (2, 769, 60)])
+def test_detection_streams_match_numpy(seed, t_len, m):
+    """Magnitude, degrees phase, saturation flags and the once-wrapped
+    phase difference (``create_pdws.m:84-85``) of the (T, M) streams the
+    extractor consumes, against numpy."""
+    import jax.numpy as jnp
+
+    from sdr_channelizer_tpu.dsp import pdw as pdwmod
+
+    rng = np.random.default_rng(seed)
+    y = (rng.standard_normal((t_len, m))
+         + 1j * rng.standard_normal((t_len, m))).astype(np.complex64)
+    y[::7, 0] = 1.0 + 0.5j  # saturating samples
+    mag, ph, sat = (np.asarray(v) for v in pdwmod._prep_streams(
+        jnp.asarray(y), 0.9999))
+    np.testing.assert_allclose(mag, np.abs(y), rtol=2e-7)
+    np.testing.assert_allclose(ph, np.degrees(np.angle(y)), rtol=0,
+                               atol=4e-5)
+    np.testing.assert_array_equal(
+        sat, (np.abs(y.real) >= 0.9999) | (np.abs(y.imag) >= 0.9999))
+    dph = np.diff(ph.astype(np.float64), axis=0)
+    dph = np.where(dph < -180, dph + 360, dph)
+    dph = np.where(dph > 180, dph - 360, dph)
+    assert np.all(np.abs(dph) <= 180)
+
+
+def test_channelized_pipeline_recovers_ground_truth():
+    """The full channelize -> noise floor -> PDW graph (payload ingest)
+    recovers a pulse train's TOAs, widths and frequency."""
+    from sdr_channelizer_tpu.config import PdwConfig
+    from sdr_channelizer_tpu.io import iqpacket
+    from sdr_channelizer_tpu.models.pipeline import ChannelizerPipeline
+
+    m, fs = 8, 8e6
+    spec = PulseTrainSpec(sample_rate_sps=fs, duration_sec=4e-3,
+                          frequency_hz=2.0e6, pulse_width_sec=100e-6,
+                          pri_sec=500e-6, start_index=1234, noise_std=3e-3)
+    iq = synth.pulse_train(spec, seed=7).astype(np.complex64)
+    n = len(iq) // m * m
+    samples = iqpacket.from_complex(iq[:n], 12)
+    pipe = ChannelizerPipeline.create(
+        m, pdw_cfg=PdwConfig.channelized(max_pulses=32, max_pulse_samples=256))
+    p = pipe.extract_fused(samples, bit_width=12, fs=fs, fc=1e9)
+    sel = (p["snr"] > 25) & (np.abs(p["freq"] - 1e9 - 2.0e6) < fs / m / 2)
+    starts = synth.pulse_starts(spec)
+    starts = starts[starts + int(100e-6 * fs) < n]
+    assert sel.sum() == len(starts)
+    # within the prototype filter's group delay (M * taps / 2 samples)
+    np.testing.assert_allclose(p["toa"][sel], (starts + 1) / fs,
+                               atol=m * 12 / 2 / fs)
+    # each edge spreads over the prototype's length (M * taps samples)
+    np.testing.assert_allclose(p["pw"][sel], 100e-6, atol=m * 12 / fs)

@@ -1,5 +1,5 @@
-"""Sort-free median (radix selection) must match the sort path bit-for-bit —
-it picks the same order statistics, just without a sort lowering."""
+"""Radix-selection median must match the sort path bit-for-bit — it picks
+the same order statistics without a sort."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -76,3 +76,26 @@ def test_multibit_median_unmasked():
     want = np.median(x, axis=0)
     got = medians.median(jnp.asarray(x), axis=0, method="select", bits=4)
     np.testing.assert_allclose(np.asarray(got), want, rtol=1e-7)
+
+
+@pytest.mark.parametrize("method", ["sort", "select"])
+@pytest.mark.parametrize("r,t_len,t_pad", [
+    (16, 5000, 5120),   # pad columns masked
+    (8, 4095, 4096),    # odd count (middle order statistic)
+    (8, 4096, 4096),    # even count (mean of two middles)
+    (8, 300, 300),      # short rows
+])
+def test_noise_floor_median_matches_numpy(r, t_len, t_pad, method):
+    """Per-channel noise floor (``create_pdws_channelized.m:73``): both
+    methods against ``np.median``, with pad columns masked out."""
+    rng = np.random.default_rng(r + t_len)
+    mag = np.abs(rng.standard_normal((r, t_pad))).astype(np.float32)
+    mag[:, t_len:] = 0.0
+    want = np.median(mag[:, :t_len], axis=1).astype(np.float32)
+    mask = jnp.arange(t_pad)[None, :] < t_len
+    got = np.asarray(masked_median(jnp.asarray(mag), mask, axis=1,
+                                   method=method))
+    np.testing.assert_array_equal(got, want)
+    got_t = np.asarray(median(jnp.asarray(mag[:, :t_len].T), axis=0,
+                              method=method))
+    np.testing.assert_array_equal(got_t, want)

@@ -3,7 +3,7 @@
 Oracle: a direct NumPy port of the reference's sequential edge-detector
 loop (``create_pdws.m:51-105``), including its quirks (1-based TOA, the
 trailing-edge sample included in medians, strict wrap inequalities,
-saturation only strictly inside the pulse).  The vectorized TPU extractor
+saturation only strictly inside the pulse).  The vectorized extractor
 must match it pulse-for-pulse.
 """
 
@@ -235,15 +235,23 @@ def test_hysteresis_scan_matches_sequential_random():
 
 
 def test_count_clamped_to_capacity():
-    """count never exceeds max_pulses (ADVICE r1: consumers sum counts
-    across blocks/channels), on both stats paths."""
+    """count never exceeds max_pulses (consumers sum counts across
+    blocks/channels), with either median method."""
     import jax.numpy as jnp
 
     fs = 1e6
     iq, spec = _mk_noisy_train(fs=fs, pw=20e-6, pri=100e-6, dur=10e-3)
     cfg = PdwConfig.wideband(max_pulses=8, max_pulse_samples=256)
-    for stats in ("xla", "pallas"):
-        batch = pdwlib.extract_pdws(jnp.asarray(iq, jnp.complex64), cfg,
-                                    stats=stats)
+    for method in ("sort", "select"):
+        iq_j = jnp.asarray(iq, jnp.complex64)
+        mag, ph, sat = pdwlib._prep_streams(iq_j, cfg.saturation_level)
+        batch = pdwlib.extract_pdws_core(
+            mag, ph, sat, jnp.median(mag),
+            snr_threshold_db=cfg.snr_threshold_db,
+            trailing_threshold_db=cfg.trailing_threshold_db,
+            saturation_level=cfg.saturation_level,
+            max_pulses=cfg.max_pulses,
+            max_pulse_samples=cfg.max_pulse_samples,
+            median_method=method)
         assert int(np.asarray(batch.count)) == 8
         assert int(np.sum(np.asarray(batch.valid))) == 8

@@ -56,7 +56,7 @@ def test_save_png(tmp_path):
 
 
 def test_stft_dft_matches_fft():
-    """The complex-free DFT branch (TPU path) equals the FFT oracle."""
+    """The complex-free DFT branch equals the FFT oracle."""
     import numpy as np
     import jax.numpy as jnp
     from sdr_channelizer_tpu.config import SpectrogramConfig

@@ -277,42 +277,6 @@ def test_measure_noise_floor_exact(capture):
         StreamingExtractor(chan, cfg).measure_noise_floor(lambda: iter(()))
 
 
-def test_noise_floor_device_counts_match_host(capture):
-    """The counts-only device reduction (round-5: ~4 KB/block-level d2h
-    instead of the full magnitude fetch) picks the identical order
-    statistics as the host two-pass histogram, even/odd counts, and
-    respects the residency cap fallback."""
-    chan = Channelizer.create(M)
-    cfg = PdwConfig.channelized(max_pulses=32, max_pulse_samples=256)
-    ext = StreamingExtractor(chan, cfg, block_frames=1024)
-
-    for n_frames in (4096, 4095):
-        iq = capture[: n_frames * M]
-        y = np.abs(np.asarray(channelize(jnp.asarray(iq), chan)))
-
-        def dev_blocks(y=y):
-            for k in range(0, len(y), 1000):
-                yield jnp.asarray(y[k:k + 1000])
-
-        got = ext._noise_floor_device(dev_blocks)
-        np.testing.assert_array_equal(
-            got, np.median(y, axis=0).astype(np.float32))
-        assert ext.counters.snapshot()["counters"][
-            "nf_device_count_d2h_bytes"] > 0
-
-    # Past the residency budget the method declines (caller falls back).
-    ext2 = StreamingExtractor(chan, cfg, block_frames=1024)
-    ext2._NF_RESIDENT_CAP_BYTES = 64
-
-    def one_block():
-        yield jnp.ones((16, M), jnp.float32)
-
-    assert ext2._noise_floor_device(one_block) is None
-
-    with pytest.raises(ValueError, match="empty sample stream"):
-        ext._noise_floor_device(lambda: iter(()))
-
-
 def test_short_block_warnings():
     """Blocks shorter than the detection halo warn instead of silently
     breaking the bit-exact stitching contract (ADVICE r1)."""
@@ -338,53 +302,49 @@ def test_streaming_counters(capture):
     assert c.get("pulses_emitted") == len(got["toa"]) > 0
 
 
-def test_extract_segment_fused_matches_single_shot(tmp_path, monkeypatch):
-    """The packed fused-kernel streaming path (TPU fast path, interpret
-    mode here): equals the single-shot fused extraction pulse-for-pulse,
-    and checkpoint/resume is bit-identical."""
+def test_extract_segment_matches_packed_single_shot(tmp_path):
+    """A two-file 12-bit segment streamed block by block equals the
+    single-shot packed-payload extraction (``extract_fused``) of the same
+    bytes pulse-for-pulse, and checkpoint/resume is bit-identical."""
     from sdr_channelizer_tpu.io import iqpacket
     from sdr_channelizer_tpu.models.pipeline import ChannelizerPipeline
-    from sdr_channelizer_tpu.ops import medians
 
     capture = _capture(n_frames=1536, seed=5)
     n = len(capture)
     chunk = n // 2
+    raw = []
     for k in range(2):
-        part = capture[k * chunk:] if k else capture[:chunk]
-        part = part[:chunk]
+        part = capture[k * chunk:(k + 1) * chunk]
         hdr = iqpacket.IqHeader(
             frequency_hz=5e8, bandwidth_hz=FS, sample_rate_sps=FS,
             rx_gain_db=0, num_samples=len(part), bit_width=12,
             sample_start_time=50.0 + k * chunk / FS,
         )
-        iqpacket.write_iq(tmp_path / f"d{k}.iq", hdr,
-                          iqpacket.from_complex(part, 12))
+        raw.append(iqpacket.from_complex(part, 12))
+        iqpacket.write_iq(tmp_path / f"d{k}.iq", hdr, raw[-1])
     seg = CaptureSet.from_dir(str(tmp_path)).segments[0]
-    raw = seg.read_samples_raw(0, seg.num_samples)
-    assert raw.dtype == np.int16 and raw.shape == (seg.num_samples, 2)
+    raw = np.concatenate(raw)
 
-    monkeypatch.setattr(medians, "use_sort_free", lambda: True)
     chan = Channelizer.create(M)
     cfg = PdwConfig.channelized(max_pulses=64, max_pulse_samples=256)
     pipe = ChannelizerPipeline.create(M, pdw_cfg=cfg)
     ref = pipe.extract_fused(raw, bit_width=12, fs=FS, fc=5e8,
                              sample_start_time=50.0)
 
-    ext = StreamingExtractor(chan, cfg, block_frames=512,
-                             halo_frames=256)
-    ck = tmp_path / "ck_fused"
-    got = ext.extract_segment_fused(seg, fc=5e8, checkpoint_dir=str(ck))
+    ext = StreamingExtractor(chan, cfg, block_frames=512, halo_frames=256)
+    ck = tmp_path / "ck"
+    got = ext.extract_segment(seg, fc=5e8, checkpoint_dir=str(ck))
     assert len(got["toa"]) == len(ref["toa"]) > 10
     for key in ("toa", "pw", "mag", "sat", "channel"):
         np.testing.assert_array_equal(got[key], ref[key])
     for key in ("freq", "snr"):  # few f32 ulps: per-shape compile variance
         np.testing.assert_allclose(got[key], ref[key], rtol=1e-6, atol=1e-5)
 
-    # interrupted resume: drop the tail checkpoints, rerun, bit-identical
+    # interrupted resume: drop the tail checkpoint, rerun, bit-identical
     blocks = sorted(ck.glob("block_*.npz"))
     assert len(blocks) == 3
     blocks[-1].unlink()
-    resumed = ext.extract_segment_fused(seg, fc=5e8, checkpoint_dir=str(ck))
+    resumed = ext.extract_segment(seg, fc=5e8, checkpoint_dir=str(ck))
     for key in got:
         np.testing.assert_array_equal(resumed[key], got[key])
 
